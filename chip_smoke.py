@@ -5,7 +5,8 @@
 
 Phases, each failing the script (nonzero exit) on any error:
 
-1. build   — nvcc builds the kernels from skelsplat_tpu_torch/csrc;
+1. build   — nvcc builds the kernels from skelsplat_tpu_torch/csrc
+             (one nvcc per source, run together);
              prints the build time, ptxas' register report and the card's
              name and power limit.
 2. kernels — K1 (raster_loss_grad) and K2 (raster_loss) against their plain
@@ -26,11 +27,26 @@ Phases, each failing the script (nonzero exit) on any error:
              (s/frame, through a host copy of xyz).
 4. agree   — 12 iterations of renderer="cuda" against renderer="fused"
              (the autograd row-chunk stream) on the card: xyz within 1e-4.
+5. measure — the kernel-measurement path. K3's SASS (csrc/
+             issue_rate.cu) keeps one instruction per step. Then, with
+             the launch counts read around them alone: ``roofline
+             --probe`` (the four issue rates at 1, 2 and 4 chains, K1's
+             activity and its two bounds) and ``kernel_probe --dead
+             --live-slots`` (K1's live and dead times and the fit of time
+             against flagged pairs). K3 then matches its plain version
+             bitwise on the inputs and sizes of every probe it ran (the
+             exp chain is exactly 0 from its third step on, so for exp
+             the SASS count, not the values, checks the body). Last, a
+             torch.profiler trace of a few K1 launches read back by
+             ``trace_summary`` with the launch count checked (taken
+             again, up to 50 times, while the profiler drops kernel
+             records).
 
 The line before the last is {"kernels": [...], "off_path_kernels": [...]}:
-"kernels" lists the kernels the path launched (K1), "off_path_kernels"
-those the port holds that the path does not launch (K2, launches 0); the
-last line is {"ok": true, "device": {...}}. ``--profile`` adds a torch.profiler pass
+"kernels" lists the kernels the paths launched (K1 on the frame, K3 on
+the measurement path), "off_path_kernels" those the port holds that no
+path launches (K2, launches 0); the last line is {"ok": true, "device":
+{...}}. ``--profile`` adds a torch.profiler pass
 over one frame (device time by kernel, device busy share).
 """
 
@@ -38,9 +54,9 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -51,59 +67,17 @@ ITERATIONS = 500
 TIMED_FRAMES = 3  # timed frames after the checked one
 # the kernels optimize_scene launches (K1); the port's other kernel, K2
 # (raster_loss), is the no-grad loss, which the path never evaluates
-PATH_KERNELS = ("raster_loss_grad",)
-# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s and
-# f32 non-tensor-core FLOP/s
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_PER_S = 67e12
-# f32 operations per (pixel, slot) pair, read off csrc/raster_loss.cu:
-# pass 1 with the slot's rect on the tile (offsets, power, exp, clamp,
-# gates, T update, GT, error, sums) and without it (GT-only terms); pass 2
-# (GT, ghat, dalpha, exp, six gradient terms, suffix)
-OPS_PASS1_REND, OPS_PASS1_GT, OPS_PASS2 = 32, 6, 44
+PATH_KERNELS = ("raster_loss_grad", "issue_rate")
+LIVE_SLOTS = ("0", "1", "2", "4", "8", "12", "17")
+TRACE_LAUNCHES = 5
+TRACE_ATTEMPTS = 50
+TRACE_DIR = Path(__file__).resolve().parent / "build" / "traces"
 # dg tolerance relative to the largest |dg| of the same view and gradient
 # component (px, py, a, b, c or opa) over the slots: both sides sum ~1e5
 # per-pixel f32 terms, the kernel by warp/tile trees and the plain version
 # by torch's reductions, so only the summation order differs; that order
 # moves the sums by ~2e-7 of this scale on an H100, 50x inside the bound
 DG_RTOL = 1e-5
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True,
-        timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int, warmup: int = 3) -> tuple[float, float]:
-    """(device ms, stream ms) per call of ``fn``: the summed duration of the
-    kernels it launches (torch.profiler), and CUDA-event time over ``reps``
-    back-to-back calls, which includes any host time the device waits for
-    (the wrapper's own Python overhead when a kernel is shorter)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    stream_ms = start.elapsed_time(end) / reps
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    dev_us = sum(e.device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-    assert dev_us > 0, "the profiler recorded no kernel"
-    return dev_us / reps / 1e3, stream_ms
 
 
 def kernel_inputs(widths, behind_camera: bool, seed: int):
@@ -146,47 +120,6 @@ def kernel_inputs(widths, behind_camera: bool, seed: int):
     return pack, p1s, p2s, prof.img
 
 
-def pair_counts(pack, img):
-    """(render pairs, GT-only pairs): (pixel, slot) pairs inside each view's
-    image whose tile the slot's rect covers with nonzero opacity, and those
-    outside it that lie in the slot's GT support — the work this input
-    needs, as the kernel's tile flags define it."""
-    from skelsplat_tpu_torch.ops import cuda_raster as cr
-
-    ys = torch.arange(H, device=pack.device, dtype=torch.float32)[:, None]
-    xs = torch.arange(W, device=pack.device, dtype=torch.float32)
-    ty, tx = torch.floor(ys / 16), torch.floor(xs / 16)
-    rend = gt_only = 0
-    for v in range(pack.shape[0]):
-        in_img = (ys < img[v, 1]) & (xs < img[v, 0])
-        for i in range(pack.shape[1]):
-            s = pack[v, i]
-            r = (in_img & (s[cr.IDX_OPA] > 0)
-                 & (tx >= s[cr.IDX_RX0]) & (tx < s[cr.IDX_RX1])
-                 & (ty >= s[cr.IDX_RY0]) & (ty < s[cr.IDX_RY1]))
-            g = (in_img & ~r & (ys >= s[cr.IDX_GY0]) & (ys < s[cr.IDX_GY1])
-                 & (xs >= s[cr.IDX_GX0]) & (xs < s[cr.IDX_GX1]))
-            rend += int(r.sum())
-            gt_only += int(g.sum())
-    return rend, gt_only
-
-
-def bound_ms(pack, p1s, p2s, img, with_grad: bool):
-    """The least time for the function on these inputs: the larger of its
-    bytes (inputs read once, outputs written once) over HBM bandwidth and
-    its f32 operations over the f32 peak. Returns (ms, "bytes"|"operations")."""
-    V, N, _ = pack.shape
-    out_floats = 2 * V + (V * N * 6 if with_grad else 0)
-    n_bytes = 4 * (pack.numel() + p1s.numel() + p2s.numel() + img.numel()
-                   + out_floats)
-    rend, gt_only = pair_counts(pack, img)
-    ops = rend * (OPS_PASS1_REND + (OPS_PASS2 if with_grad else 0)) \
-        + gt_only * OPS_PASS1_GT
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_PER_S * 1e3
-    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
-
-
 def dg_rel_err(dg, dgp):
     """(6,) worst |dg − dgp| per gradient component, each relative to the
     largest |dgp| of its view and component over the slots."""
@@ -197,6 +130,8 @@ def dg_rel_err(dg, dgp):
 
 def phase_kernels():
     from skelsplat_tpu_torch.ops import cuda_raster as cr
+    from skelsplat_tpu_torch.tools.roofline import kernel_bound
+    from skelsplat_tpu_torch.tools.timing import cuda_ms
 
     cases = [("mixed rig, l2_gaussian", MIXED_WIDTHS, False, False, 0),
              ("mixed rig, l1_gaussian", MIXED_WIDTHS, False, True, 0),
@@ -245,10 +180,10 @@ def phase_kernels():
              cr.raster_loss_grad_plain),
             ("raster_loss", 320, False, cr.raster_loss, cr.raster_loss_plain)):
         ms, stream_ms = cuda_ms(lambda: fn(pack, p1s, p2s, img, False),
-                                reps=200)
+                                reps=200, each_kernel_once=True)
         plain_ms, plain_stream_ms = cuda_ms(
             lambda: plain(pack, p1s, p2s, img, False), reps=3, warmup=1)
-        b_ms, b_by = bound_ms(pack, p1s, p2s, img, grad)
+        b_ms, b_by = kernel_bound(pack, p1s, p2s, img, grad)["published"]
         rows.append({"name": name, "route": "cuda",
                      "source": "skelsplat_tpu_torch/csrc/raster_loss.cu",
                      "replaces": f"skelsplat_tpu/ops/pallas_raster.py:{line}",
@@ -393,6 +328,182 @@ def phase_agree():
     assert dl < 1e-5, dl
 
 
+def phase_measure(lib_path, k1_ms: float):
+    """The kernel-measurement path: K3's SASS, then roofline --probe and
+    kernel_probe --dead --live-slots, K3 against its plain version at every
+    probe's size, and a K1 trace read back by trace_summary. Returns (K3's
+    kernels-line row, K1's measured-rate bound (ms, by))."""
+    from skelsplat_tpu_torch.ops import cuda_raster as cr
+    from skelsplat_tpu_torch.tools import kernel_probe, roofline
+    from skelsplat_tpu_torch.tools.timing import cuda_ms
+
+    # the chains were not folded away: one instruction of each kind per
+    # step in every unrolled group of 64 (for exp, MUFU is expf's body)
+    sass = roofline.sass_opcodes(lib_path)
+    need = {"mul": {"FMUL": 64}, "fma": {"FMUL": 64, "FADD": 64},
+            "exp": {"MUFU": 64, "FMUL": 64, "FADD": 64},
+            "mix": {"FMUL": 192, "FADD": 128, "FSETP": 64}}
+    for i, op in enumerate(roofline.OPS):
+        for chains in roofline.CHAINS:
+            sym = [f for f in sass if f"issue_rate_kernelILi{i}ELi{chains}E" in f]
+            assert len(sym) == 1, (op, chains, sym)
+            got = sass[sym[0]]
+            print(f"  SASS {op}/{chains}: " + ", ".join(
+                f"{k} {got[k]}" for k in ("FMUL", "FADD", "FFMA", "FSETP",
+                                          "FSEL", "MUFU")), flush=True)
+            for opcode, n in need[op].items():
+                assert got[opcode] >= n, (op, chains, opcode, got[opcode])
+
+    for k in cr.launches:
+        cr.launches[k] = 0
+    roofline.launches["issue_rate"] = 0
+    roof = roofline.main(["--probe"])
+    probe = kernel_probe.main(["--dead", "--live-slots", *LIVE_SLOTS])
+    counts = {**cr.launches, **roofline.launches}
+    print(f"  launches on the measurement path: {counts}", flush=True)
+    assert counts["issue_rate"] > 0 and counts["raster_loss_grad"] > 0
+    assert counts["raster_loss"] == 0
+    assert probe["dead_ms"] < probe["live_ms"], probe
+
+    assert abs(probe["live_ms"] / k1_ms - 1) <= 0.10, (probe, k1_ms)
+    print(f"  K1 live {probe['live_ms']:.4f} ms, dead "
+          f"{probe['dead_ms']:.4f} ms (kernel_probe); roofline's K1 "
+          f"{roof['k1_ms']:.4f} ms; phase 2 {k1_ms:.4f} ms on perturbed "
+          f"scales and rotations: live/phase 2 = "
+          f"{probe['live_ms'] / k1_ms:.3f}", flush=True)
+    ms_p, by_p = roof["bound"]["published"]
+    ms_m, by_m = roof["bound"]["measured"]
+    print(f"  K1 bounds: {ms_p:.6f} ms by {by_p} (published peaks), "
+          f"{ms_m:.6f} ms by {by_m} (measured mix rate, expf = "
+          f"{roof['bound']['exp_weight']:.2f} mix operations) on "
+          f"{roof['card']}", flush=True)
+
+    # K3 against its plain version on each probe's input at its size: the
+    # same IEEE operations in the same order, so bitwise equal (mix/1's
+    # plain run is also timed)
+    k3_err, plain_ms = 0.0, None
+    for p in roof["probes"]:
+        args = (p["x"], p["k_steps"], p["chains"], p["op"])
+        if (p["op"], p["chains"]) == ("mix", 1):
+            outs = []
+            plain_ms, _ = cuda_ms(
+                lambda: outs.append(roofline.issue_rate_plain(*args)),
+                reps=1, warmup=0)
+            ref, mix = outs[-1], p
+        else:
+            ref = roofline.issue_rate_plain(*args)
+        got = roofline.issue_rate(*args)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all(), args[1:]
+        d = float((got - ref).abs().max())
+        assert torch.equal(got, ref), (args[1:], d)
+        k3_err = max(k3_err, d)
+    print(f"  K3 bitwise equal to plain at every probe's size "
+          f"({mix['n']} elements; {sorted({p['k_steps'] for p in roof['probes']})} "
+          f"steps)", flush=True)
+    n_ops = mix["n"] * mix["k_steps"] * roofline.OPS_PER_STEP["mix"]
+    t_bytes = 8 * mix["n"] / roofline.PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / roofline.PEAK_F32_PER_S * 1e3
+    print(f"  K3 mix/1 at full size: {mix['ms']:.4f} ms/launch, plain "
+          f"{plain_ms:.2f} ms", flush=True)
+    trace_k1()
+    row = {"name": "issue_rate", "route": "cuda",
+           "source": "skelsplat_tpu_torch/csrc/issue_rate.cu",
+           "replaces": "skelsplat_tpu/tools/roofline.py:212",
+           "launches": counts["issue_rate"], "max_abs_err": k3_err,
+           "ms": mix["ms"], "plain_ms": plain_ms,
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops > t_bytes else "bytes",
+           "library_ms": None}
+    return row, (ms_m, by_m)
+
+
+def k1_trace_records(events):
+    """(correlation ids of the runtime launches inside K1's wrapper range,
+    device records) of a trace. Asserts that every device record is a K1
+    tiles or reduce kernel launched there."""
+    from skelsplat_tpu_torch.tools import trace_summary
+
+    k1_launches = trace_summary.range_launches(events,
+                                               "skelsplat::raster_loss_grad")
+    kernels = trace_summary.device_events(events)
+    for ev in kernels:
+        assert ev.get("args", {}).get("correlation") in k1_launches and \
+            any(k in ev["name"] for k in ("raster_loss_tiles",
+                                          "reduce_tiles")), \
+            (ev["name"], ev.get("args"))
+    return k1_launches, kernels
+
+
+def trace_k1():
+    """Exports torch.profiler traces of TRACE_LAUNCHES K1 launches (a
+    warm-up round, then the traced one, both padded by
+    tools/timing.py::profiled_round) and reads each back with
+    trace_summary, until one holds every kernel record, for at most
+    TRACE_ATTEMPTS traces. Every trace must hold the wrapper's 2 *
+    TRACE_LAUNCHES runtime launches (host records) and only K1 kernel
+    records launched there. torch.profiler now and then drops the device
+    records of a short session, some or all (PERF.md), so a trace may
+    hold fewer; in the first that holds them all, ``summarize`` must count
+    TRACE_LAUNCHES of each kernel, all attributed to the wrapper's range.
+    That trace is kept as build/traces/k1_trace.json, the others beside
+    it. Prints the traces that lost records and the spread of kernel
+    start minus launch, the profiler's device-to-host clock error."""
+    import shutil
+
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from skelsplat_tpu_torch.ops import cuda_raster as cr
+    from skelsplat_tpu_torch.tools import kernel_probe, trace_summary
+    from skelsplat_tpu_torch.tools.timing import (PROFILE_EDGE_S,
+                                                  profiled_round)
+
+    pack, p1s, p2s, img = kernel_probe.probe_inputs()
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    path = TRACE_DIR / "k1_trace.json"
+    lost, offsets = [], []
+    for attempt in range(TRACE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: p.export_chrome_trace(str(path))
+                     ) as prof:
+            for _ in range(2):
+                profiled_round(
+                    prof, lambda: cr.raster_loss_grad(pack, p1s, p2s, img,
+                                                      False), TRACE_LAUNCHES)
+        events = trace_summary.load_trace_events(str(path))
+        k1_launches, kernels = k1_trace_records(events)
+        assert len(k1_launches) == 2 * TRACE_LAUNCHES, \
+            (attempt, len(k1_launches))
+        offs = trace_summary.launch_offsets(events)
+        if offs:
+            offsets.append((min(offs.values()), max(offs.values())))
+        if len(kernels) == len(k1_launches):
+            break
+        lost.append((attempt, len(k1_launches) - len(kernels)))
+        shutil.copyfile(path, TRACE_DIR / f"k1_trace_lost_{attempt:02d}.json")
+    print(f"  {len(lost) + 1} trace(s) of {2 * TRACE_LAUNCHES} K1 launches "
+          f"(rounds padded by {PROFILE_EDGE_S * 1e3:.0f} ms); records lost "
+          f"(trace, records): {lost}", flush=True)
+    assert len(lost) < TRACE_ATTEMPTS, \
+        f"no trace of {TRACE_ATTEMPTS} held every K1 kernel record"
+    launch = next(e for e in events if e.get("cat") == "cuda_runtime"
+                  and "correlation" in e.get("args", {}))
+    print(f"  trace fields: kernel args {sorted(kernels[0].get('args', {}))}"
+          f"; runtime {launch['name']!r} args {sorted(launch['args'])}",
+          flush=True)
+    _, counts, _, n_op = trace_summary.summarize(
+        events, top=6, by_op=True, out=lambda r: print(f"    {r}"))
+    for kernel in ("raster_loss_tiles", "reduce_tiles"):
+        names = [k for k in counts if kernel in k]
+        assert len(names) == 1 and counts[names[0]] == TRACE_LAUNCHES, \
+            (kernel, {k: counts[k] for k in names})
+    assert n_op["skelsplat::raster_loss_grad"] == 2 * TRACE_LAUNCHES, n_op
+    lows = sorted(lo for lo, _ in offsets)
+    print(f"  kernel start minus launch: lowest {lows[0]:.1f} us, highest "
+          f"{max(hi for _, hi in offsets):.1f} us", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -405,7 +516,9 @@ def main():
 
     from skelsplat_tpu_torch.ops import _build
 
-    print("[1/4] build", flush=True)
+    from skelsplat_tpu_torch.tools.timing import card_line
+
+    print("[1/5] build", flush=True)
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.load_library()
@@ -419,10 +532,10 @@ def main():
     print(f"  card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
 
-    print("[2/4] kernels against their plain versions", flush=True)
+    print("[2/5] kernels against their plain versions", flush=True)
     rows = phase_kernels()
 
-    print("[3/4] path: one H36M frame through SceneTrainer.optimize_scene",
+    print("[3/5] path: one H36M frame through SceneTrainer.optimize_scene",
           flush=True)
     counts, s_per_frame, (e0, e1) = phase_path(args.profile)
     for row in rows:
@@ -431,8 +544,15 @@ def main():
           f"{ITERATIONS} iterations, 4 views at {W}x{H}) on {card}",
           flush=True)
 
-    print("[4/4] renderer agreement: cuda vs fused", flush=True)
+    print("[4/5] renderer agreement: cuda vs fused", flush=True)
     phase_agree()
+
+    print("[5/5] measurement path: K3, roofline, kernel_probe, "
+          "trace_summary", flush=True)
+    k1 = next(r for r in rows if r["name"] == "raster_loss_grad")
+    k3_row, (k1["bound_ms_measured_rate"], k1["bound_by_measured_rate"]) = \
+        phase_measure(lib_path, k1["ms"])
+    rows.append(k3_row)
 
     print(card)
     print(json.dumps({

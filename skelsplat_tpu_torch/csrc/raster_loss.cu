@@ -6,12 +6,15 @@
 //
 // What bounds it on an H100: neither bytes nor operations. Per view it reads
 // N slot records and the N x (H + W) GT profiles (~0.5 MB for four
-// 1002x1000 views) and writes a few hundred floats; the work is ~60 f32
-// operations and two expf per (pixel, slot) pair where a splat or its GT
-// support touches a tile, ~10^5 pairs per view for a 17-joint skeleton.
+// 1002x1000 views) and writes a few hundred floats. A (pixel, slot) pair in
+// a tile the splat's rect covers needs 72 f32 operations and one expf; this
+// kernel issues 122 and two (pass 2 recomputes pass 1), and 7 per pair only
+// the GT support reaches (tools/roofline.py, PAIR_OPS and PAIR_OPS_ISSUED),
+// ~4x10^4 and ~10^4 such pairs per view for a 17-joint skeleton.
 // Both bounds are well under a microsecond, so launch latency and the
-// per-block fixed cost dominate. The design keeps that fixed cost small and
-// does only the work the data needs:
+// per-block fixed cost dominate (tools/kernel_probe.py --dead measures the
+// floor). The design keeps that fixed cost small and does only the work
+// the data needs:
 //   * one block per 16x16 pixel tile (the reference's tile, so the splat
 //     rect gate is uniform over a block) and one thread per pixel; grid
 //     (ceil(W/16), ceil(H/16), V), so one launch covers every view;

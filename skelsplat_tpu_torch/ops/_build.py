@@ -3,13 +3,20 @@
 The sources in ``csrc/`` compile into one shared library with a plain C
 interface under ``<repo>/build/kernels/`` (listed in .gitignore), named by
 a hash of the sources and flags, so an edited source is rebuilt and an
-unchanged one is reused. Building needs ``nvcc`` (CUDA_HOME, then PATH,
-then /usr/local/cuda) and an sm_90 card: the kernels are compiled for
-``sm_90a`` only.
+unchanged one is reused. Each source compiles in its own nvcc process, all
+started together, and one more links them. Building needs ``nvcc``
+(CUDA_HOME, then PATH, then /usr/local/cuda) and an sm_90 card: the kernels
+are compiled for ``sm_90a`` only.
+
+    python -m skelsplat_tpu_torch.ops._build
+
+times a build from scratch with the compiles one after another and all at
+once, in the order serial, parallel, parallel, serial.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import hashlib
 import os
@@ -21,12 +28,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("raster_loss.cu",)
+SOURCES = ("raster_loss.cu", "issue_rate.cu")
 HEADERS = ("raster_math.cuh",)
 TILE = 16
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC"]
+              "-O3", "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _lib = None
@@ -56,28 +62,51 @@ def library_path() -> Path:
     return BUILD_DIR / f"libskelsplat_kernels-{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless a build of these exact sources exists."""
+def _run(cmds, parallel: bool) -> list[tuple[int, str]]:
+    """(return code, output) of each command: all started together, or
+    each after the last has ended."""
+    if not parallel:
+        return [_run([c], True)[0] for c in cmds]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    return [(p.returncode, log) for p, log in zip(procs, logs)]
+
+
+def build(out: Path | None = None, parallel: bool = True) -> Path:
+    """Compile the kernels into ``out`` (default ``library_path()``) unless
+    it exists, with one nvcc per source: all at once, or with ``parallel``
+    false one after another."""
     global build_log, build_seconds
     import time
 
-    out = library_path()
+    out = out or library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-           *(str(CSRC / s) for s in SOURCES)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [os.path.join(work, f"{s}.o") for s in SOURCES]
+        compiles = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", o,
+                     str(CSRC / s)] for s, o in zip(SOURCES, objs)]
+        results = _run(compiles, parallel)
+        build_log = "".join(log for _, log in results)
+        for cmd, (rc, log) in zip(compiles, results):
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n"
+                                   f"{' '.join(cmd)}\n{log}")
+        tmp = os.path.join(work, "lib.so")
+        link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                "-o", tmp, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        build_log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(link)}\n{build_log}")
+        os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{build_log}")
-    os.replace(tmp, out)   # atomic: concurrent builders never see a partial file
     return out
 
 
@@ -98,6 +127,8 @@ def load_library() -> ctypes.CDLL:
             lib.skelsplat_raster_loss.argtypes = (
                 [vp] * 4 + [i32] * 6 + [vp] * 6)
             lib.skelsplat_raster_loss.restype = i32
+            lib.skelsplat_issue_rate.argtypes = [vp, vp] + [i32] * 4 + [vp]
+            lib.skelsplat_issue_rate.restype = i32
             lib.skelsplat_error_string.argtypes = [i32]
             lib.skelsplat_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -106,3 +137,21 @@ def load_library() -> ctypes.CDLL:
 
 def error_string(err: int) -> str:
     return load_library().skelsplat_error_string(err).decode()
+
+
+def main(argv=None) -> dict:
+    """Seconds of a build from scratch, serial and parallel, alternated."""
+    argparse.ArgumentParser(description=main.__doc__).parse_args(argv)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    times = {False: [], True: []}
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as d:
+        for i, parallel in enumerate((False, True, True, False)):
+            build(Path(d) / f"lib{i}.so", parallel)
+            times[parallel].append(build_seconds)
+            print(f"{'parallel' if parallel else 'serial'} build of "
+                  f"{len(SOURCES)} sources: {build_seconds:.2f} s", flush=True)
+    return {"serial": times[False], "parallel": times[True]}
+
+
+if __name__ == "__main__":
+    main()

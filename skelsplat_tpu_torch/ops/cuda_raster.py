@@ -255,7 +255,10 @@ def _launch(pack, p1, p2, img, l1: bool, with_grad: bool):
     C = torch.empty(V, dtype=torch.int32, device=dev)
     dg = torch.empty((V, N, N_GRAD) if with_grad else (1,),
                      dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    name = "raster_loss_grad" if with_grad else "raster_loss"
+    # the range names the launch in a profiler trace (tools/trace_summary.py)
+    with torch.cuda.device(dev), torch.profiler.record_function(
+            f"skelsplat::{name}"):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.skelsplat_raster_loss(
             pack.data_ptr(), p1.data_ptr(), p2.data_ptr(), img.data_ptr(),

@@ -6,6 +6,7 @@ nor the JAX package, so it runs where only the port is installed:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -98,3 +99,24 @@ def test_macro_steps_make_no_host_sync(card):
         syncs[iters] = count_syncs(lambda: trainer.optimize_scene(
             init[0], p2d[0], cams, gt[0]))
     assert syncs[8] == syncs[40], syncs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["mul", "fma", "exp", "mix"])
+def test_issue_rate_kernel_matches_plain_version(card, op):
+    """K3 against its plain version, with a ragged last block: the same IEEE
+    operations in the same order, so bitwise equal (an exp chain is exactly
+    0 from its third step on, so for exp this checks only that the chain is
+    built; chip_smoke.py's SASS count checks expf's body)."""
+    from skelsplat_tpu_torch.tools import roofline
+
+    x = torch.as_tensor(np.random.default_rng(1).uniform(0, 1, 3 * 256 + 17),
+                        dtype=torch.float32, device="cuda")
+    for chains in roofline.CHAINS:
+        before = roofline.launches["issue_rate"]
+        got = roofline.issue_rate(x, 128, chains, op)
+        ref = roofline.issue_rate_plain(x, 128, chains, op)
+        torch.cuda.synchronize()
+        assert roofline.launches["issue_rate"] == before + 1
+        assert bool(torch.isfinite(got).all())
+        assert torch.equal(got, ref), (op, chains)

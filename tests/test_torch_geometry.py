@@ -234,6 +234,10 @@ import sys
 import skelsplat_tpu_torch
 import skelsplat_tpu_torch.compat, skelsplat_tpu_torch.synthetic
 import skelsplat_tpu_torch.engine.trainer, skelsplat_tpu_torch.ops._build
+import skelsplat_tpu_torch.tools.roofline, skelsplat_tpu_torch.tools.kernel_probe
+import skelsplat_tpu_torch.tools.trace_summary, skelsplat_tpu_torch.tools.timing
+import skelsplat_tpu_torch.tools.trace_loss
+import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'skelsplat_tpu'))
 assert not bad, bad
@@ -264,3 +268,15 @@ def test_default_device_entry_points_raise_without_a_gpu():
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         compat.params_from_numpy({f: np.zeros((17, 3)) for f in
                                   tgaussians.PARAM_FIELDS})
+    from skelsplat_tpu_torch.tools import kernel_probe, roofline, trace_loss
+
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        roofline.main([])
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        roofline.main(["--probe"])
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        kernel_probe.main([])
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        roofline.probe_issue_rate("mul")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        trace_loss.main(["--seconds", "1"])
