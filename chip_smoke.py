@@ -7,15 +7,20 @@ Phases, each failing the script (nonzero exit) on any error:
 
 1. build   — nvcc builds the kernels from skelsplat_tpu_torch/csrc
              (one nvcc per source, run together);
-             prints the build time, ptxas' register report and the card's
-             name and power limit.
+             prints the build time, ptxas' register report, registers,
+             spill bytes and resident blocks per SM of every K1/K2 tile
+             kernel instantiation, and the card's name and power limit.
 2. kernels — K1 (raster_loss_grad) and K2 (raster_loss) against their plain
              PyTorch versions on the card at H36M size (4 views, 1002×1000
              grid, 17 joints): a mixed 1000/1002-wide rig with l2_gaussian,
-             the same with l1_gaussian, and a rig with one splat behind a
-             camera. C must match exactly; S and each gradient component of
-             dg within the stated tolerance; two K1 runs must be bitwise
-             equal. Times each kernel, its plain version and its bound.
+             the same with l1_gaussian, a rig with one splat behind a
+             camera, a 19-joint rig, and the mixed rig with one view that
+             has no live tile. C must match exactly; S and each gradient
+             component of dg within the stated tolerance; the view with no
+             live tile gives S, C and dg exactly 0; two K1 runs must be
+             bitwise equal; the live-tile list each kernel built must equal
+             live_tiles_plain's. Times each kernel, its plain version and
+             its bound.
 3. path    — one synthetic H36M frame (4 views at 1002×1000, 17 joints,
              500 iterations = 125 macro steps, l2_gaussian + limb
              consistency) through SceneTrainer.optimize_scene(renderer=
@@ -32,8 +37,10 @@ Phases, each failing the script (nonzero exit) on any error:
              the launch counts read around them alone: ``roofline
              --probe`` (the four issue rates at 1, 2 and 4 chains, K1's
              activity and its two bounds) and ``kernel_probe --dead
-             --live-slots`` (K1's live and dead times and the fit of time
-             against flagged pairs). K3 then matches its plain version
+             --live-slots`` (K1's live and dead times, the live one within
+             10% of phase 2's, and the fit of time against flagged
+             pairs). K1's and K2's measured-rate bounds are taken on phase
+             2's timed inputs. K3 then matches its plain version
              bitwise on the inputs and sizes of every probe it ran (the
              exp chain is exactly 0 from its third step on, so for exp
              the SASS count, not the values, checks the body). Last, a
@@ -80,44 +87,18 @@ TRACE_DIR = Path(__file__).resolve().parent / "build" / "traces"
 DG_RTOL = 1e-5
 
 
-def kernel_inputs(widths, behind_camera: bool, seed: int):
-    """Depth-sorted packs of one synthetic frame at a perturbed pose."""
-    from skelsplat_tpu_torch import compat
-    from skelsplat_tpu_torch.core.gaussians import init_params
-    from skelsplat_tpu_torch.ops import cuda_raster, heatmaps, rasterizer
-    from skelsplat_tpu_torch.synthetic import synthetic_inputs
+def kernel_inputs(widths, behind_camera: bool, seed: int,
+                  n_joints: int = N_JOINTS, dead_view=None):
+    """Depth-sorted packs of one synthetic frame at a perturbed pose, with
+    every slot of ``dead_view`` (if given) dead."""
+    from skelsplat_tpu_torch.tools import kernel_probe
 
-    init, _, p2d, cams_np = synthetic_inputs(1, W, H, n_views=N_VIEWS,
-                                             n_joints=N_JOINTS, seed=seed,
-                                             widths=widths)
-    pose = init[0].copy()
-    if behind_camera:
-        c = cams_np["cam_center"][0].astype(np.float64)
-        away = c - pose.mean(axis=0)
-        pose[4] = c + 300.0 * away / np.linalg.norm(away)
-    cams = compat.camera_from_numpy(cams_np, device="cuda")
-    params = init_params(pose, "h36m", 3.0, 1.0, device="cuda")
-    spec = heatmaps.heatmap_spec(params.xyz, params.covariance(),
-                                 torch.as_tensor(p2d[0], device="cuda"),
-                                 cams, W, H)
-    rng = np.random.default_rng(seed + 1)
-    params = type(params)(
-        params.xyz,
-        params.log_scales + torch.as_tensor(
-            rng.normal(0, 0.3, (N_JOINTS, 3)), dtype=torch.float32,
-            device="cuda"),
-        params.quats + torch.as_tensor(
-            rng.normal(0, 0.2, (N_JOINTS, 4)), dtype=torch.float32,
-            device="cuda"),
-        params.opacity_logit)
-    prof = cuda_raster.view_profiles(spec, W, H)
-    pp = rasterizer.preprocess_gaussians(params.xyz, params.covariance(),
-                                         params.opacity, cams, W, H)
-    if behind_camera:
-        assert not bool(pp.valid[0, 4]), "joint 4 should be behind camera 0"
-    gd, aux, p1s, p2s = cuda_raster.slot_pack(pp, prof)
-    pack = torch.cat([gd, aux], dim=-1).contiguous()
-    return pack, p1s, p2s, prof.img
+    pack, p1s, p2s, img = kernel_probe.probe_inputs(
+        W, H, n_joints=n_joints, n_views=N_VIEWS, seed=seed, device="cuda",
+        widths=widths, behind_camera=behind_camera, perturb=True)
+    if dead_view is not None:
+        pack, p1s = kernel_probe.keep_slots(pack, p1s, 0, views=[dead_view])
+    return pack, p1s, p2s, img
 
 
 def dg_rel_err(dg, dgp):
@@ -128,36 +109,64 @@ def dg_rel_err(dg, dgp):
     return ((dg - dgp).abs() / scale).amax(dim=(0, 1))
 
 
+def check_live_list(name, live, ref):
+    """The live-tile list a kernel call built against live_tiles_plain's:
+    the counts, and each view's first live_n entries and slot masks."""
+    (idx, mask, n), (idx_p, mask_p, n_p) = live, ref
+    assert torch.equal(n, n_p), f"{name}: live_n {n.tolist()} vs {n_p.tolist()}"
+    for v, k in enumerate(n_p.tolist()):
+        assert torch.equal(idx[v, :k], idx_p[v, :k]) and \
+            torch.equal(mask[v, :k], mask_p[v, :k]), f"{name}: view {v} list"
+
+
 def phase_kernels():
     from skelsplat_tpu_torch.ops import cuda_raster as cr
     from skelsplat_tpu_torch.tools.roofline import kernel_bound
     from skelsplat_tpu_torch.tools.timing import cuda_ms
 
-    cases = [("mixed rig, l2_gaussian", MIXED_WIDTHS, False, False, 0),
-             ("mixed rig, l1_gaussian", MIXED_WIDTHS, False, True, 0),
-             ("splat behind camera 0, l2_gaussian", None, True, False, 5)]
+    # (name, widths, behind camera, l1, seed, joints, view with no live tile)
+    cases = [("mixed rig, l2_gaussian", MIXED_WIDTHS, False, False, 0, 17, None),
+             ("mixed rig, l1_gaussian", MIXED_WIDTHS, False, True, 0, 17, None),
+             ("splat behind camera 0, l2_gaussian", None, True, False, 5, 17,
+              None),
+             ("19-joint rig, l2_gaussian", None, False, False, 0, 19, None),
+             ("mixed rig with view 2 dead, l2_gaussian", MIXED_WIDTHS, False,
+              False, 0, 17, 2)]
     err = {"raster_loss_grad": 0.0, "raster_loss": 0.0}
-    for name, widths, behind, l1, seed in cases:
-        pack, p1s, p2s, img = kernel_inputs(widths, behind, seed)
+    for name, widths, behind, l1, seed, n_joints, dead in cases:
+        pack, p1s, p2s, img = kernel_inputs(widths, behind, seed, n_joints,
+                                            dead)
         before = dict(cr.launches)
-        S, C, dg = cr.raster_loss_grad(pack, p1s, p2s, img, l1)
+        S, C, dg, live = cr.raster_loss_grad(pack, p1s, p2s, img, l1,
+                                             return_live=True)
         S_b, C_b, dg_b = cr.raster_loss_grad(pack, p1s, p2s, img, l1)
-        S2, C2 = cr.raster_loss(pack, p1s, p2s, img, l1)
+        S2, C2, live2 = cr.raster_loss(pack, p1s, p2s, img, l1,
+                                       return_live=True)
         torch.cuda.synchronize()
         assert cr.launches["raster_loss_grad"] == before["raster_loss_grad"] + 2
         assert cr.launches["raster_loss"] == before["raster_loss"] + 1
         Sp, Cp, dgp = cr.raster_loss_grad_plain(pack, p1s, p2s, img, l1)
         S2p, C2p = cr.raster_loss_plain(pack, p1s, p2s, img, l1)
+        ref = cr.live_tiles_plain(pack, H, W)
         torch.cuda.synchronize()
+        check_live_list(f"{name}, K1", live, ref)
+        check_live_list(f"{name}, K2", live2, ref)
         assert torch.equal(S, S_b) and torch.equal(C, C_b) \
             and torch.equal(dg, dg_b), f"{name}: two K1 runs differ"
         assert torch.equal(C, Cp) and torch.equal(C2, C2p), \
             f"{name}: C {C.tolist()} vs plain {Cp.tolist()}"
-        assert bool((C > 0).all()), f"{name}: empty mask"
+        views = [v for v in range(N_VIEWS) if v != dead]
+        assert bool((C[views] > 0).all()), f"{name}: empty mask"
+        if dead is not None:
+            assert int(ref[2][dead]) == 0
+            assert float(S[dead]) == 0.0 and int(C[dead]) == 0 \
+                and float(S2[dead]) == 0.0 and int(C2[dead]) == 0 \
+                and float(dg[dead].abs().max()) == 0.0, \
+                f"{name}: the dead view's outputs are not exactly 0"
         assert torch.isfinite(dg).all() and torch.isfinite(S).all(), name
         torch.testing.assert_close(S, Sp, rtol=1e-5, atol=0)
         torch.testing.assert_close(S2, S2p, rtol=1e-5, atol=0)
-        rel = dg_rel_err(dg, dgp)
+        rel = dg_rel_err(dg[views], dgp[views])
         assert float(rel.max()) <= DG_RTOL, \
             f"{name}: dg off by {rel.tolist()} of its scale per component"
         if behind:
@@ -168,12 +177,13 @@ def phase_kernels():
                                       float((S - Sp).abs().max()))
         err["raster_loss"] = max(err["raster_loss"],
                                  float((S2 - S2p).abs().max()))
-        print(f"  {name}: S {S.tolist()} C {C.tolist()} "
-              f"|dS| {float((S - Sp).abs().max()):.3g} "
+        print(f"  {name}: S {S.tolist()} C {C.tolist()} live tiles "
+              f"{ref[2].tolist()} |dS| {float((S - Sp).abs().max()):.3g} "
               f"dg rel err per component (px py a b c opa) "
               f"{[float(f'{r:.3g}') for r in rel.tolist()]}", flush=True)
     # times at the main path's shapes (uniform 1002x1000 rig, l2)
-    pack, p1s, p2s, img = kernel_inputs(None, False, 0)
+    timed = kernel_inputs(None, False, 0)
+    pack, p1s, p2s, img = timed
     rows = []
     for name, line, grad, fn, plain in (
             ("raster_loss_grad", 466, True, cr.raster_loss_grad,
@@ -194,7 +204,7 @@ def phase_kernels():
               f"back to back); plain {plain_ms:.2f} ms device time "
               f"({plain_stream_ms:.2f} back to back); bound {b_ms:.6f} ms by "
               f"{b_by}", flush=True)
-    return rows
+    return rows, timed
 
 
 def make_trainer(iterations: int, renderer: str):
@@ -284,7 +294,9 @@ def phase_path(profile: bool):
 def profile_frame(trainer, init, p2d, cams, gt, s_per_frame: float):
     """Device time by kernel and the device busy share over one frame:
     the sum of kernel durations over the profiled wall time, and over the
-    unprofiled s/frame (the profiler slows the host, not the kernels)."""
+    unprofiled s/frame (the profiler slows the host, not the kernels).
+    The wrapper ranges' device-side copies (user annotations, which span
+    the kernels they launch) are left out, so no kernel counts twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -297,7 +309,8 @@ def profile_frame(trainer, init, p2d, cams, gt, s_per_frame: float):
         wall = time.perf_counter() - t0
     rows = sorted(((e.device_time_total, e.count, e.key)
                    for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), reverse=True)
+                   if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation), reverse=True)
     assert rows, "the profiler recorded no kernel"
     busy = sum(r[0] for r in rows) / 1e6
     print(f"  profile: {sum(r[1] for r in rows)} kernels, device busy "
@@ -328,11 +341,12 @@ def phase_agree():
     assert dl < 1e-5, dl
 
 
-def phase_measure(lib_path, k1_ms: float):
+def phase_measure(lib_path, k1_ms: float, timed):
     """The kernel-measurement path: K3's SASS, then roofline --probe and
     kernel_probe --dead --live-slots, K3 against its plain version at every
-    probe's size, and a K1 trace read back by trace_summary. Returns (K3's
-    kernels-line row, K1's measured-rate bound (ms, by))."""
+    probe's size, and a K1 trace read back by trace_summary. ``k1_ms`` is
+    phase 2's K1 time on its inputs ``timed``. Returns (K3's kernels-line
+    row, K1's and K2's measured-rate bounds (ms, by) on ``timed``)."""
     from skelsplat_tpu_torch.ops import cuda_raster as cr
     from skelsplat_tpu_torch.tools import kernel_probe, roofline
     from skelsplat_tpu_torch.tools.timing import cuda_ms
@@ -365,18 +379,26 @@ def phase_measure(lib_path, k1_ms: float):
     assert counts["raster_loss"] == 0
     assert probe["dead_ms"] < probe["live_ms"], probe
 
-    assert abs(probe["live_ms"] / k1_ms - 1) <= 0.10, (probe, k1_ms)
+    # the probe's live time against phase 2's, timed apart on inputs that
+    # differ only in phase 2's perturbed scales and rotations
     print(f"  K1 live {probe['live_ms']:.4f} ms, dead "
           f"{probe['dead_ms']:.4f} ms (kernel_probe); roofline's K1 "
           f"{roof['k1_ms']:.4f} ms; phase 2 {k1_ms:.4f} ms on perturbed "
           f"scales and rotations: live/phase 2 = "
           f"{probe['live_ms'] / k1_ms:.3f}", flush=True)
+    assert abs(probe["live_ms"] / k1_ms - 1) <= 0.10, (probe, k1_ms)
     ms_p, by_p = roof["bound"]["published"]
     ms_m, by_m = roof["bound"]["measured"]
     print(f"  K1 bounds: {ms_p:.6f} ms by {by_p} (published peaks), "
           f"{ms_m:.6f} ms by {by_m} (measured mix rate, expf = "
           f"{roof['bound']['exp_weight']:.2f} mix operations) on "
           f"{roof['card']}", flush=True)
+    # the rows' measured-rate bounds, on the inputs whose time they report
+    bounds = [roofline.kernel_bound(*timed, grad, roof["rates"])["measured"]
+              for grad in (True, False)]
+    print(f"  measured-rate bounds at phase 2's inputs: K1 "
+          f"{bounds[0][0]:.6f} ms by {bounds[0][1]}, K2 {bounds[1][0]:.6f} ms "
+          f"by {bounds[1][1]}", flush=True)
 
     # K3 against its plain version on each probe's input at its size: the
     # same IEEE operations in the same order, so bitwise equal (mix/1's
@@ -415,13 +437,17 @@ def phase_measure(lib_path, k1_ms: float):
            "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops > t_bytes else "bytes",
            "library_ms": None}
-    return row, (ms_m, by_m)
+    return row, *bounds
+
+
+# K1's two kernels (csrc/raster_loss.cu), as their names appear in a trace
+K1_KERNELS = ("live_tiles", "raster_loss_live")
 
 
 def k1_trace_records(events):
     """(correlation ids of the runtime launches inside K1's wrapper range,
-    device records) of a trace. Asserts that every device record is a K1
-    tiles or reduce kernel launched there."""
+    device records) of a trace. Asserts that every device record is one of
+    K1's kernels launched there."""
     from skelsplat_tpu_torch.tools import trace_summary
 
     k1_launches = trace_summary.range_launches(events,
@@ -429,8 +455,7 @@ def k1_trace_records(events):
     kernels = trace_summary.device_events(events)
     for ev in kernels:
         assert ev.get("args", {}).get("correlation") in k1_launches and \
-            any(k in ev["name"] for k in ("raster_loss_tiles",
-                                          "reduce_tiles")), \
+            any(k in ev["name"] for k in K1_KERNELS), \
             (ev["name"], ev.get("args"))
     return k1_launches, kernels
 
@@ -494,7 +519,7 @@ def trace_k1():
           flush=True)
     _, counts, _, n_op = trace_summary.summarize(
         events, top=6, by_op=True, out=lambda r: print(f"    {r}"))
-    for kernel in ("raster_loss_tiles", "reduce_tiles"):
+    for kernel in K1_KERNELS:
         names = [k for k in counts if kernel in k]
         assert len(names) == 1 and counts[names[0]] == TRACE_LAUNCHES, \
             (kernel, {k: counts[k] for k in names})
@@ -527,13 +552,22 @@ def main():
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             print(f"  ptxas: {line.strip()}")
+    for grad in (True, False):
+        for l1 in (False, True):
+            for ns in ((16, 24, 32) if grad else (32,)):
+                occ = _build.occupancy(grad, l1, ns)
+                print(f"  {'K1' if grad else 'K2'} tile kernel, "
+                      f"{'l1' if l1 else 'l2'}, slot bound {ns}: "
+                      f"{occ['registers']} registers, {occ['local_bytes']} "
+                      f"spill bytes a thread, {occ['blocks_per_sm']} resident "
+                      f"blocks of 256 per SM", flush=True)
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"  card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
 
     print("[2/5] kernels against their plain versions", flush=True)
-    rows = phase_kernels()
+    rows, timed = phase_kernels()
 
     print("[3/5] path: one H36M frame through SceneTrainer.optimize_scene",
           flush=True)
@@ -549,9 +583,10 @@ def main():
 
     print("[5/5] measurement path: K3, roofline, kernel_probe, "
           "trace_summary", flush=True)
-    k1 = next(r for r in rows if r["name"] == "raster_loss_grad")
-    k3_row, (k1["bound_ms_measured_rate"], k1["bound_by_measured_rate"]) = \
-        phase_measure(lib_path, k1["ms"])
+    k1, k2 = rows
+    k3_row, k1_bound, k2_bound = phase_measure(lib_path, k1["ms"], timed)
+    for row, (ms, by) in ((k1, k1_bound), (k2, k2_bound)):
+        row["bound_ms_measured_rate"], row["bound_by_measured_rate"] = ms, by
     rows.append(k3_row)
 
     print(card)

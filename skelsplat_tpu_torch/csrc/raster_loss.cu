@@ -7,27 +7,44 @@
 // What bounds it on an H100: neither bytes nor operations. Per view it reads
 // N slot records and the N x (H + W) GT profiles (~0.5 MB for four
 // 1002x1000 views) and writes a few hundred floats. A (pixel, slot) pair in
-// a tile the splat's rect covers needs 72 f32 operations and one expf; this
-// kernel issues 122 and two (pass 2 recomputes pass 1), and 7 per pair only
-// the GT support reaches (tools/roofline.py, PAIR_OPS and PAIR_OPS_ISSUED),
-// ~4x10^4 and ~10^4 such pairs per view for a 17-joint skeleton.
-// Both bounds are well under a microsecond, so launch latency and the
-// per-block fixed cost dominate (tools/kernel_probe.py --dead measures the
-// floor). The design keeps that fixed cost small and does only the work
-// the data needs:
-//   * one block per 16x16 pixel tile (the reference's tile, so the splat
-//     rect gate is uniform over a block) and one thread per pixel; grid
-//     (ceil(W/16), ceil(H/16), V), so one launch covers every view;
-//   * the block loads the view's depth-sorted slot records into shared
-//     memory and flags, per slot, whether its rect covers the tile (render
-//     work) and whether its GT support meets the tile (GT-only terms); a
-//     tile with no flagged slot writes zero partials and exits;
-//   * per-slot live alpha and T stay in registers (N <= MAX_SLOTS), so the
-//     reverse pass needs no scratch memory;
-//   * S, the integer count C and the 6N gradient sums reduce by warp
-//     shuffles and shared memory into per-block partials, which a second,
-//     deterministic kernel sums per view. No float atomics: two runs on the
-//     same inputs give bitwise-equal results.
+// a tile the splat's rect covers needs 72 f32 operations and one expf, and
+// 7 a pair only the GT support reaches (tools/roofline.py, PAIR_OPS);
+// ~4x10^4 and ~10^4 such pairs per view for a 17-joint skeleton, in ~4% of
+// the view's 16x16 tiles. Both bounds are well under a microsecond, so what
+// costs is a fixed cost per launch and per tile, and the latency of a
+// tile's walk over its slots. Two launches per call:
+//   * live_tiles, one block per view, builds the view's list of live tiles
+//     in ascending tile order: a tile is live when some slot's rect covers
+//     it (render work) or its GT support meets it (GT-only terms). Each
+//     test splits into a column test and a row test, so a tile's 64-bit
+//     slot mask is col_mask[bx] & row_mask[by] (bit i: slot i renders
+//     there; bit 32 + i: its GT support meets it), and a block-wide prefix
+//     sum of the live counts places each live tile in the list. A view
+//     with no live tile gets S = C = dg = 0 here. A dead tile costs one AND
+//     of two masks, and the count of live tiles never reaches the host.
+//   * raster_loss_live runs a persistent grid (the resident blocks of every
+//     SM, 3 of 256 threads each) over the views' lists, one entry at a
+//     time: one thread per pixel of the 16x16 tile (the reference's tile,
+//     so the rect gate is uniform over a block). The block stages the
+//     view's slot records and the tile's 16 rows of p1 and 16 columns of p2
+//     per flagged slot in shared memory, then walks the slots front to back
+//     (pass 1: S, C, and per render slot its T and live alpha, in registers
+//     sized by a compile-time slot bound NS from N) and back to front (pass
+//     2: the gradient, recomputing gt, the mask and slot_alpha, each slot's
+//     six components folded across the warp in 8 shuffles). Each entry
+//     writes its S and C at its list position and, per slot whose rect
+//     covers it, the six dg components at the tile's position in the slot's
+//     rect. The block that finishes a view's last entry (a per-view counter
+//     in the call's own buffers, zeroed by live_tiles) sums the view: S and
+//     C over its list by a block-wide tree, each slot's dg over its rect
+//     (~10-50 tiles) by one warp, so no thread walks the list serially.
+//     No float atomics and fixed orders: two runs on the same inputs give
+//     bitwise-equal results. Every call has its own buffers, so calls on
+//     different streams may overlap.
+//
+// The tile kernel is held to 3 resident blocks per SM (80 registers): one
+// block (141 registers) was 1.9x slower live, 2 were 1.2x slower and 4
+// tied 3 with twice the spill (PERF.md, section 6).
 #include <cuda_runtime.h>
 
 #include "raster_math.cuh"
@@ -36,270 +53,523 @@ namespace skelsplat {
 
 constexpr int THREADS = TILE * TILE;  // one thread per pixel of the tile
 constexpr int WARPS = THREADS / 32;
-constexpr int REDUCE_THREADS = 256;
+constexpr int MIN_BLOCKS = 3;         // resident tile-kernel blocks per SM
+constexpr int LIST_THREADS = 1024;    // live_tiles: one block per view
+constexpr int GT_BIT = 32;            // mask bit GT_BIT + i: slot i's GT support
+constexpr unsigned FULL = 0xffffffffu;
 
-constexpr int SLOT_REND = 1;  // splat rect covers the tile
-constexpr int SLOT_GT = 2;    // GT support [gy0,gy1) x [gx0,gx1) meets it
+typedef unsigned long long Mask;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(FULL, v, o);
   return v;
 }
 
 __device__ __forceinline__ int warp_sum(int v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(FULL, v, o);
   return v;
 }
 
-// part_f: (V, n_f, n_tiles) with n_f = 1 + 6N (S, then dg slot-major) or 1
-// part_c: (V, n_tiles)
-template <bool WITH_GRAD, bool L1>
-__global__ void __launch_bounds__(THREADS)
-    raster_loss_tiles(const float* __restrict__ pack,
-                      const float* __restrict__ p1,
-                      const float* __restrict__ p2,
-                      const float* __restrict__ img, int N, int H, int W,
-                      float* __restrict__ part_f, int* __restrict__ part_c) {
-  __shared__ float s_pack[MAX_SLOTS * PACK];
-  __shared__ int s_flags[MAX_SLOTS];
-  __shared__ float s_S[WARPS];
-  __shared__ int s_C[WARPS];
-  __shared__ float s_dg[WITH_GRAD ? WARPS * MAX_SLOTS * N_GRAD : 1];
+// Component of a slot's gradient whose warp sum warp_sum6 leaves in `lane`
+// (-1: none). Lanes 0, 4, 8, 16, 20 and 24 hold components 0-5.
+__device__ __forceinline__ int sum6_component(int lane) {
+  const int q = (lane >> 2) & 3;
+  return q == 3 ? -1 : 3 * ((lane >> 4) & 1) + q;
+}
 
-  const int v = blockIdx.z;
-  const int n_tiles = gridDim.x * gridDim.y;
-  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  const int n_f = 1 + (WITH_GRAD ? N * N_GRAD : 0);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* out_f = part_f + (size_t)v * n_f * n_tiles + tile;
+// The six gradient components summed over the warp in 8 shuffles instead of
+// six 5-step butterflies: each xor step halves the components a lane
+// carries (offset 16: 6 -> 3, 8: 3 -> 2 with one zero pad, 4: 2 -> 1), then
+// offsets 2 and 1 finish the sum. Every lane of a group of 4 returns the
+// sum of component sum6_component(lane).
+__device__ __forceinline__ float warp_sum6(const float (&g)[N_GRAD],
+                                           int lane) {
+  const bool h16 = lane & 16, h8 = lane & 8, h4 = lane & 4;
+  float a[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    a[c] = (h16 ? g[3 + c] : g[c]) +
+           __shfl_xor_sync(FULL, h16 ? g[c] : g[3 + c], 16);
+  const float b0 = (h8 ? a[2] : a[0]) + __shfl_xor_sync(FULL, h8 ? a[0] : a[2], 8);
+  const float b1 = (h8 ? 0.f : a[1]) + __shfl_xor_sync(FULL, h8 ? a[1] : 0.f, 8);
+  float s = (h4 ? b1 : b0) + __shfl_xor_sync(FULL, h4 ? b0 : b1, 4);
+  s += __shfl_xor_sync(FULL, s, 2);
+  s += __shfl_xor_sync(FULL, s, 1);
+  return s;
+}
+
+// One block per view: the view's live tiles in ascending tile order,
+// live_idx[v][0, live_n[v]) with their slot masks live_mask[v][...], and
+// the view's counter of finished entries view_done[v] = 0. A view with no
+// live tile gets S = C = dg = 0.
+__global__ void __launch_bounds__(LIST_THREADS)
+    live_tiles(const float* __restrict__ pack, int N, int n_tx, int n_ty,
+               int* __restrict__ live_idx, Mask* __restrict__ live_mask,
+               int* __restrict__ live_n, unsigned* __restrict__ view_done,
+               int with_grad, float* __restrict__ S, int* __restrict__ C,
+               float* __restrict__ dg) {
+  extern __shared__ Mask s_axis[];  // n_tx column masks, then n_ty row masks
+  __shared__ float s_pack[MAX_SLOTS * PACK];
+  __shared__ int s_warp[LIST_THREADS / 32];
+  const int v = blockIdx.x, t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  const int n_tiles = n_tx * n_ty;
 
   const float* pk = pack + (size_t)v * N * PACK;
-  for (int k = threadIdx.x; k < N * PACK; k += THREADS) s_pack[k] = pk[k];
+  for (int q = t; q < N * PACK; q += LIST_THREADS) s_pack[q] = pk[q];
   __syncthreads();
-  if (threadIdx.x < N) {
-    const float* s = &s_pack[threadIdx.x * PACK];
-    const float bx = (float)blockIdx.x, by = (float)blockIdx.y;
-    const float x0 = (float)(blockIdx.x * TILE), y0 = (float)(blockIdx.y * TILE);
-    int f = 0;
-    // opa > 0 is implied by the gate alpha >= 1/255, so a splat with zero
-    // opacity (culled in the preprocess) does no render work anywhere
-    if (s[IDX_OPA] > 0.f && bx >= s[IDX_RX0] && bx < s[IDX_RX1] &&
-        by >= s[IDX_RY0] && by < s[IDX_RY1])
-      f |= SLOT_REND;
-    if (s[IDX_GY0] < y0 + TILE && s[IDX_GY1] > y0 && s[IDX_GX0] < x0 + TILE &&
-        s[IDX_GX1] > x0)
-      f |= SLOT_GT;
-    s_flags[threadIdx.x] = f;
-  }
+  // the tile tests, split by axis: render needs opa > 0 and bx in
+  // [rx0, rx1) (column) and by in [ry0, ry1) (row); GT needs the support's
+  // columns and rows to meet the tile's. One thread per (axis line, slot),
+  // OR-ed into the line's mask (OR is exact in any order).
+  const int n_axis = n_tx + n_ty;
+  for (int a = t; a < n_axis; a += LIST_THREADS) s_axis[a] = 0;
   __syncthreads();
-  int any = 0;
-  for (int i = 0; i < N; ++i) any |= s_flags[i];
-  if (!any) {
-    for (int q = threadIdx.x; q < n_f; q += THREADS) out_f[(size_t)q * n_tiles] = 0.f;
-    if (threadIdx.x == 0) part_c[(size_t)v * n_tiles + tile] = 0;
-    return;
-  }
-
-  const int x = blockIdx.x * TILE + (threadIdx.x % TILE);
-  const int y = blockIdx.y * TILE + (threadIdx.x / TILE);
-  const bool in_grid = x < W && y < H;
-  const float xf = (float)x, yf = (float)y;
-  const bool in_img = in_grid && xf < img[2 * v] && yf < img[2 * v + 1];
-  const float* p1v = p1 + (size_t)v * N * H;
-  const float* p2v = p2 + (size_t)v * N * W;
-
-  // pass 1: front to back
-  float T = 1.f;  // T == 0 encodes the T_MIN early-out
-  float S_acc = 0.f;
-  int C_acc = 0;
-  float al[MAX_SLOTS], Tv[MAX_SLOTS];  // live-masked alpha, T before slot
-#pragma unroll
-  for (int i = 0; i < MAX_SLOTS; ++i) {
-    al[i] = 0.f;
-    Tv[i] = 0.f;
-    if (i >= N) continue;
-    const int f = s_flags[i];
-    if (!f) continue;
+  for (int q = t; q < n_axis * N; q += LIST_THREADS) {
+    const int a = q / N, i = q % N;
     const float* s = &s_pack[i * PACK];
-    const float gt =
-        in_grid ? p1v[(size_t)i * H + y] * p2v[(size_t)i * W + x] + s[IDX_B]
-                : 0.f;
-    if (f & SLOT_REND) {
-      const SlotEval e = slot_alpha(s, xf, yf);
-      const bool gate = e.power <= 0.f && e.alpha >= ALPHA_MIN;
-      const float a_i = gate ? e.alpha : 0.f;
-      const float test = T * (1.f - a_i);
-      const bool ge = test >= T_MIN;
-      const bool live = gate && ge;
-      const float contrib = live ? a_i * T : 0.f;
-      const float r = fminf(fmaxf(contrib, 0.f), 1.f);
-      if ((gt > 0.f || r > 0.f) && in_img) {
-        S_acc += err_of<L1>(r - gt);
+    Mask m = 0;
+    if (a < n_tx) {
+      const float bx = (float)a, x0 = (float)(a * TILE);
+      if (s[IDX_OPA] > 0.f && bx >= s[IDX_RX0] && bx < s[IDX_RX1])
+        m |= 1ull << i;
+      if (s[IDX_GX0] < x0 + TILE && s[IDX_GX1] > x0) m |= 1ull << (GT_BIT + i);
+    } else {
+      const float by = (float)(a - n_tx), y0 = (float)((a - n_tx) * TILE);
+      if (by >= s[IDX_RY0] && by < s[IDX_RY1]) m |= 1ull << i;
+      if (s[IDX_GY0] < y0 + TILE && s[IDX_GY1] > y0) m |= 1ull << (GT_BIT + i);
+    }
+    if (m) atomicOr(&s_axis[a], m);
+  }
+  __syncthreads();
+
+  // each thread owns a run of consecutive tiles, so an exclusive prefix sum
+  // of the runs' live counts gives every live tile its list position
+  const int per = (n_tiles + LIST_THREADS - 1) / LIST_THREADS;
+  const int t0 = min(t * per, n_tiles), t1 = min(t0 + per, n_tiles);
+  const int bx0 = t0 % n_tx, by0 = t0 / n_tx;
+  int cnt = 0;
+  for (int tile = t0, bx = bx0, by = by0; tile < t1; ++tile) {
+    cnt += (s_axis[bx] & s_axis[n_tx + by]) != 0;
+    if (++bx == n_tx) bx = 0, ++by;
+  }
+  int incl = cnt;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int w = s_warp[lane];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(FULL, w, o);
+      if (lane >= o) w += y;
+    }
+    s_warp[lane] = w;
+  }
+  __syncthreads();
+  int pos = incl - cnt + (warp > 0 ? s_warp[warp - 1] : 0);
+  const size_t row = (size_t)v * n_tiles;
+  for (int tile = t0, bx = bx0, by = by0; tile < t1; ++tile) {
+    const Mask m = s_axis[bx] & s_axis[n_tx + by];
+    if (m) {
+      live_idx[row + pos] = tile;
+      live_mask[row + pos] = m;
+      ++pos;
+    }
+    if (++bx == n_tx) bx = 0, ++by;
+  }
+  const int total = s_warp[LIST_THREADS / 32 - 1];
+  if (t == 0) {
+    live_n[v] = total;
+    view_done[v] = 0;
+  }
+  if (total == 0) {  // no tile kernel block visits the view
+    if (t == 0) {
+      S[v] = 0.f;
+      C[v] = 0;
+    }
+    if (with_grad)
+      for (int q = t; q < N * N_GRAD; q += LIST_THREADS)
+        dg[(size_t)v * N * N_GRAD + q] = 0.f;
+  }
+}
+
+// The tiles [x0, x0 + w) x [y0, y0 + h) of an n_tx x n_ty grid where slot
+// record s renders: those the kernel's float compares flag (opa > 0,
+// b >= r0 and b < r1 on each axis, which for an integer b is
+// ceil(r0) <= b < ceil(r1)); empty when a bound is NaN or opa <= 0.
+struct RectSpan {
+  int x0, y0, w, h;
+};
+
+__device__ __forceinline__ RectSpan rect_span(const float* s, int n_tx,
+                                              int n_ty) {
+  RectSpan r = {0, 0, 0, 0};
+  const float rx0 = s[IDX_RX0], rx1 = s[IDX_RX1], ry0 = s[IDX_RY0],
+              ry1 = s[IDX_RY1];
+  if (!(s[IDX_OPA] > 0.f) || rx0 != rx0 || rx1 != rx1 || ry0 != ry0 ||
+      ry1 != ry1)  // NaN
+    return r;
+  const float fx = (float)n_tx, fy = (float)n_ty;
+  r.x0 = (int)fminf(fmaxf(ceilf(rx0), 0.f), fx);
+  r.y0 = (int)fminf(fmaxf(ceilf(ry0), 0.f), fy);
+  r.w = max((int)fminf(fmaxf(ceilf(rx1), 0.f), fx) - r.x0, 0);
+  r.h = max((int)fminf(fmaxf(ceilf(ry1), 0.f), fy) - r.y0, 0);
+  return r;
+}
+
+// Sums view v's partials, reading through L2 (other blocks wrote them), in
+// an order fixed by N and the view's list and slot rects: S and C over the
+// first L list rows, thread t taking rows t, t + 256, ... and a fixed tree
+// adding the threads; with a gradient, dg[v][i] over slot i's rect
+// positions, warp i % 8 taking slot i, lane l positions l, l + 32, ... and
+// warp_sum6 adding the lanes.
+template <bool WITH_GRAD>
+__device__ void reduce_view(int v, int L, int N, int n_tx, int n_ty,
+                            const float* s_pack, const float* part_s,
+                            const int* part_c, const float* part_dg, float* S,
+                            int* C, float* dg, float* s_rf, int* s_rc) {
+  const int n_tiles = n_tx * n_ty;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const size_t row0 = (size_t)v * n_tiles;
+  float sf = 0.f;
+  int sc = 0;
+  for (int j = t; j < L; j += THREADS) {
+    sf += __ldcg(&part_s[row0 + j]);
+    sc += __ldcg(&part_c[row0 + j]);
+  }
+  s_rf[t] = sf;
+  s_rc[t] = sc;
+  __syncthreads();
+  for (int o = THREADS / 2; o > 0; o >>= 1) {
+    if (t < o) {
+      s_rf[t] += s_rf[t + o];
+      s_rc[t] += s_rc[t + o];
+    }
+    __syncthreads();
+  }
+  if (t == 0) {
+    S[v] = s_rf[0];
+    C[v] = s_rc[0];
+  }
+  if constexpr (WITH_GRAD) {
+    const int comp = sum6_component(lane);
+    for (int i = warp; i < N; i += WARPS) {
+      const RectSpan rs = rect_span(&s_pack[i * PACK], n_tx, n_ty);
+      const float* src = part_dg + ((size_t)v * N + i) * n_tiles * N_GRAD;
+      float g[N_GRAD] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      for (int p = lane; p < rs.w * rs.h; p += 32)
+#pragma unroll
+        for (int c = 0; c < N_GRAD; ++c) g[c] += __ldcg(&src[p * N_GRAD + c]);
+      const float w = warp_sum6(g, lane);
+      if ((lane & 3) == 0 && comp >= 0)
+        dg[((size_t)v * N + i) * N_GRAD + comp] = w;
+    }
+  }
+}
+
+// part_s, part_c: (V, n_tiles), row j of view v is the view's list entry
+// j; part_dg: (V, N, n_tiles, 6), position p of slot i is the tile at
+// (x0 + p % w, y0 + p / w) of the slot's rect_span.
+template <bool WITH_GRAD, bool L1, int NS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    raster_loss_live(const float* __restrict__ pack,
+                     const float* __restrict__ p1,
+                     const float* __restrict__ p2,
+                     const float* __restrict__ img, int V, int N, int H, int W,
+                     int n_tx, const int* __restrict__ live_idx,
+                     const Mask* __restrict__ live_mask,
+                     const int* __restrict__ live_n,
+                     unsigned* __restrict__ view_done,
+                     float* __restrict__ part_s,
+                     int* __restrict__ part_c, float* __restrict__ part_dg,
+                     float* __restrict__ S, int* __restrict__ C,
+                     float* __restrict__ dg) {
+  __shared__ float s_pack[NS * PACK];
+  __shared__ float s_p1[NS * TILE], s_p2[NS * TILE];  // the tile's rows, columns
+  __shared__ float s_S[WARPS];
+  __shared__ int s_C[WARPS];
+  __shared__ float s_dg[WITH_GRAD ? WARPS * NS * N_GRAD : 1];
+  __shared__ float s_rf[THREADS];
+  __shared__ int s_rc[THREADS];
+  __shared__ int s_last;
+
+  const int n_ty = (H + TILE - 1) / TILE, n_tiles = n_tx * n_ty;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tx = threadIdx.x % TILE, ty = threadIdx.x / TILE;
+  const int comp = sum6_component(lane);
+
+  int v = 0, base = 0;  // the view of entry k, and the entries before it
+  for (int k = blockIdx.x;; k += gridDim.x) {
+    while (v < V && k - base >= live_n[v]) base += live_n[v++];
+    if (v == V) break;
+    const size_t e = (size_t)v * n_tiles + (k - base);
+    const int tile = live_idx[e];
+    const Mask mask = live_mask[e];
+    const unsigned work = (unsigned)(mask | (mask >> GT_BIT));
+    const int bx = tile % n_tx, by = tile / n_tx;
+    const float* p1v = p1 + (size_t)v * N * H;
+    const float* p2v = p2 + (size_t)v * N * W;
+
+    __syncthreads();  // the previous entry is done with shared memory
+    const float* pk = pack + (size_t)v * N * PACK;
+    for (int q = threadIdx.x; q < N * PACK; q += THREADS) s_pack[q] = pk[q];
+    for (int q = threadIdx.x; q < N * TILE; q += THREADS) {
+      const int i = q / TILE, o = q % TILE;
+      if ((work >> i) & 1u) {
+        const int yy = by * TILE + o, xx = bx * TILE + o;
+        s_p1[q] = yy < H ? p1v[(size_t)i * H + yy] : 0.f;
+        s_p2[q] = xx < W ? p2v[(size_t)i * W + xx] : 0.f;
+      }
+    }
+    __syncthreads();
+
+    const int x = bx * TILE + tx, y = by * TILE + ty;
+    const bool in_grid = x < W && y < H;
+    const float xf = (float)x, yf = (float)y;
+    const bool in_img = in_grid && xf < img[2 * v] && yf < img[2 * v + 1];
+
+    // pass 1: front to back
+    float T = 1.f;  // T == 0 encodes the T_MIN early-out
+    float S_acc = 0.f;
+    int C_acc = 0;
+    // per render slot: T before it and its live-masked alpha
+    constexpr int NA = WITH_GRAD ? NS : 1;
+    float Tv[NA], Av[NA];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      if (i >= N) break;
+      const bool rend = (mask >> i) & 1ull;
+      if (!rend && !((mask >> (GT_BIT + i)) & 1ull)) continue;
+      const float* s = &s_pack[i * PACK];
+      const float gt =
+          in_grid ? s_p1[i * TILE + ty] * s_p2[i * TILE + tx] + s[IDX_B] : 0.f;
+      if (rend) {
+        const SlotEval ev = slot_alpha(s, xf, yf);
+        const bool gate = ev.power <= 0.f && ev.alpha >= ALPHA_MIN;
+        const float a_i = gate ? ev.alpha : 0.f;
+        const float test = T * (1.f - a_i);
+        const bool ge = test >= T_MIN;
+        const bool live = gate && ge;
+        const float contrib = live ? a_i * T : 0.f;
+        const float r = fminf(fmaxf(contrib, 0.f), 1.f);
+        const bool m = (gt > 0.f || r > 0.f) && in_img;
+        if (m) {
+          S_acc += err_of<L1>(r - gt);
+          C_acc += 1;
+        }
+        if constexpr (WITH_GRAD) {
+          Tv[i] = T;
+          Av[i] = live ? a_i : 0.f;
+        }
+        if (gate) T = ge ? test : 0.f;
+      } else if (gt > 0.f && in_img) {  // GT-only terms of a slot off this tile
+        S_acc += err_of<L1>(gt);
         C_acc += 1;
       }
-      al[i] = live ? a_i : 0.f;
-      Tv[i] = T;
-      if (gate) T = ge ? test : 0.f;
-    } else if (gt > 0.f && in_img) {  // GT-only terms of a slot off this tile
-      S_acc += err_of<L1>(gt);
-      C_acc += 1;
     }
-  }
-  {
-    const float ws = warp_sum(S_acc);
-    const int wc = warp_sum(C_acc);
-    if (lane == 0) {
-      s_S[warp] = ws;
-      s_C[warp] = wc;
-    }
-  }
-
-  if (WITH_GRAD) {
-    // pass 2: back to front; sfx = sum over later slots of alpha*T*ghat
-    float sfx = 0.f;
-#pragma unroll
-    for (int j = 0; j < MAX_SLOTS; ++j) {
-      const int i = MAX_SLOTS - 1 - j;
-      if (i >= N || !(s_flags[i] & SLOT_REND)) continue;
-      const float* s = &s_pack[i * PACK];
-      const float a_i = al[i], T_i = Tv[i];
-      const bool live = a_i > 0.f;
-      const float r = fminf(fmaxf(a_i * T_i, 0.f), 1.f);
-      const float gt =
-          in_grid ? p1v[(size_t)i * H + y] * p2v[(size_t)i * W + x] + s[IDX_B]
-                  : 0.f;
-      const bool mask = (gt > 0.f || r > 0.f) && in_img;
-      const float ghat = (mask && live) ? derr_of<L1>(r - gt) : 0.f;
-      const SlotEval e = slot_alpha(s, xf, yf);
-      const float dalpha = live ? T_i * ghat - sfx / (1.f - a_i) : 0.f;
-      // the reference chains through the alpha clamp unconditionally:
-      // dalpha/dpower is the unclamped opa * E
-      const float dpower = dalpha * (s[IDX_OPA] * e.E);
-      float g[N_GRAD];
-      g[0] = dpower * (-s[IDX_CA] * e.dx - s[IDX_CB] * e.dy);
-      g[1] = dpower * (-s[IDX_CC] * e.dy - s[IDX_CB] * e.dx);
-      g[2] = dpower * (-0.5f * e.dx * e.dx);
-      g[3] = dpower * (-e.dx * e.dy);
-      g[4] = dpower * (-0.5f * e.dy * e.dy);
-      g[5] = dalpha * e.E;
-#pragma unroll
-      for (int k = 0; k < N_GRAD; ++k) {
-        const float w = warp_sum(g[k]);
-        if (lane == 0) s_dg[(warp * MAX_SLOTS + i) * N_GRAD + k] = w;
+    {
+      const float ws = warp_sum(S_acc);
+      const int wc = warp_sum(C_acc);
+      if (lane == 0) {
+        s_S[warp] = ws;
+        s_C[warp] = wc;
       }
-      sfx = sfx + a_i * T_i * ghat;
     }
-  }
-  __syncthreads();
 
-  if (threadIdx.x == 0) {
-    float S = 0.f;
-    int C = 0;
-    for (int w = 0; w < WARPS; ++w) {
-      S += s_S[w];
-      C += s_C[w];
+    if constexpr (WITH_GRAD) {
+      // pass 2: back to front; sfx = sum over later slots of alpha*T*ghat
+      float sfx = 0.f;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const int i = NS - 1 - j;
+        if (i >= N || !((mask >> i) & 1ull)) continue;
+        const float* s = &s_pack[i * PACK];
+        const float T_i = Tv[i];
+        // pass 2 recomputes gt, the mask and slot_alpha (keeping them from
+        // pass 1 costs registers and was no faster, PERF.md section 6)
+        const float a_i = Av[i];
+        const bool live = a_i > 0.f;
+        const float r = fminf(fmaxf(a_i * T_i, 0.f), 1.f);
+        const float gt =
+            in_grid ? s_p1[i * TILE + ty] * s_p2[i * TILE + tx] + s[IDX_B]
+                    : 0.f;
+        const bool m = (gt > 0.f || r > 0.f) && in_img;
+        const float ghat = (m && live) ? derr_of<L1>(r - gt) : 0.f;
+        const SlotEval ev = slot_alpha(s, xf, yf);
+        const float E = ev.E, oE = s[IDX_OPA] * E, dx = ev.dx, dy = ev.dy;
+        const float dalpha = live ? T_i * ghat - sfx / (1.f - a_i) : 0.f;
+        // the reference chains through the alpha clamp unconditionally:
+        // dalpha/dpower is the unclamped opa * E
+        const float dpower = dalpha * oE;
+        float g[N_GRAD];
+        g[0] = dpower * (-s[IDX_CA] * dx - s[IDX_CB] * dy);
+        g[1] = dpower * (-s[IDX_CC] * dy - s[IDX_CB] * dx);
+        g[2] = dpower * (-0.5f * dx * dx);
+        g[3] = dpower * (-dx * dy);
+        g[4] = dpower * (-0.5f * dy * dy);
+        g[5] = dalpha * E;
+        const float w = warp_sum6(g, lane);
+        if ((lane & 3) == 0 && comp >= 0)
+          s_dg[(warp * NS + i) * N_GRAD + comp] = w;
+        sfx = sfx + a_i * T_i * ghat;
+      }
     }
-    out_f[0] = S;
-    part_c[(size_t)v * n_tiles + tile] = C;
-  }
-  if (WITH_GRAD) {
-    for (int q = threadIdx.x; q < N * N_GRAD; q += THREADS) {
-      const int i = q / N_GRAD, k = q % N_GRAD;
-      float acc = 0.f;
-      if (s_flags[i] & SLOT_REND)
-        for (int w = 0; w < WARPS; ++w)
-          acc += s_dg[(w * MAX_SLOTS + i) * N_GRAD + k];
-      out_f[(size_t)(1 + q) * n_tiles] = acc;
+    __syncthreads();
+
+    // the entry's partials: S and C at its list position, each render
+    // slot's six dg components at the tile's position in the slot's rect
+    if (threadIdx.x == 0) {
+      float Sb = 0.f;
+      int Cb = 0;
+      for (int w = 0; w < WARPS; ++w) {
+        Sb += s_S[w];
+        Cb += s_C[w];
+      }
+      part_s[e] = Sb;
+      part_c[e] = Cb;
+    }
+    if constexpr (WITH_GRAD) {
+      for (int q = threadIdx.x; q < N * N_GRAD; q += THREADS) {
+        const int i = q / N_GRAD, c = q % N_GRAD;
+        if (!((mask >> i) & 1ull)) continue;
+        const RectSpan rs = rect_span(&s_pack[i * PACK], n_tx, n_ty);
+        const int pos = (by - rs.y0) * rs.w + (bx - rs.x0);
+        float acc = 0.f;
+        for (int w = 0; w < WARPS; ++w) acc += s_dg[(w * NS + i) * N_GRAD + c];
+        part_dg[(((size_t)v * N + i) * n_tiles + pos) * N_GRAD + c] = acc;
+      }
+    }
+
+    // the block that finishes the view's last entry sums the view
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0)
+      s_last = atomicAdd(&view_done[v], 1u) + 1u == (unsigned)live_n[v];
+    __syncthreads();
+    if (s_last) {
+      __threadfence();
+      reduce_view<WITH_GRAD>(v, live_n[v], N, n_tx, n_ty, s_pack, part_s,
+                             part_c, part_dg, S, C, dg, s_rf, s_rc);
     }
   }
 }
 
-// Sums the per-tile partials of one (quantity, view) in a fixed order:
-// blockIdx.x < n_f is a float quantity (0 = S, 1 + 6i + k = dg[i][k]),
-// blockIdx.x == n_f the count C.
-__global__ void __launch_bounds__(REDUCE_THREADS)
-    reduce_tiles(const float* __restrict__ part_f,
-                 const int* __restrict__ part_c, int n_f, int n_tiles,
-                 float* __restrict__ S, int* __restrict__ C,
-                 float* __restrict__ dg) {
-  __shared__ float s_f[REDUCE_THREADS];
-  __shared__ int s_c[REDUCE_THREADS];
-  const int q = blockIdx.x, v = blockIdx.y, t = threadIdx.x;
-  if (q < n_f) {
-    const float* src = part_f + ((size_t)v * n_f + q) * n_tiles;
-    float acc = 0.f;
-    for (int k = t; k < n_tiles; k += REDUCE_THREADS) acc += src[k];
-    s_f[t] = acc;
-    __syncthreads();
-    for (int stride = REDUCE_THREADS / 2; stride > 0; stride >>= 1) {
-      if (t < stride) s_f[t] += s_f[t + stride];
-      __syncthreads();
-    }
-    if (t == 0) {
-      if (q == 0)
-        S[v] = s_f[0];
-      else
-        dg[(size_t)v * (n_f - 1) + (q - 1)] = s_f[0];
-    }
-  } else {
-    const int* src = part_c + (size_t)v * n_tiles;
-    int acc = 0;
-    for (int k = t; k < n_tiles; k += REDUCE_THREADS) acc += src[k];
-    s_c[t] = acc;
-    __syncthreads();
-    for (int stride = REDUCE_THREADS / 2; stride > 0; stride >>= 1) {
-      if (t < stride) s_c[t] += s_c[t + stride];
-      __syncthreads();
-    }
-    if (t == 0) C[v] = s_c[0];
-  }
+typedef void (*TileKernel)(const float*, const float*, const float*,
+                           const float*, int, int, int, int, int, const int*,
+                           const Mask*, const int*, unsigned*, float*, int*,
+                           float*, float*, int*, float*);
+
+// K1 sizes its per-slot registers by a slot bound from N; K2 keeps none.
+int slot_bound(int N, bool with_grad) {
+  if (!with_grad || N > 24) return MAX_SLOTS;
+  return N > 16 ? 24 : 16;
 }
 
-template <bool WITH_GRAD, bool L1>
-void launch_tiles(dim3 grid, cudaStream_t stream, const float* pack,
-                  const float* p1, const float* p2, const float* img, int N,
-                  int H, int W, float* part_f, int* part_c) {
-  raster_loss_tiles<WITH_GRAD, L1><<<grid, THREADS, 0, stream>>>(
-      pack, p1, p2, img, N, H, W, part_f, part_c);
+// The instantiation for (with_grad, l1, ns) and its cache slot, or null.
+TileKernel pick(bool with_grad, bool l1, int ns, int* slot) {
+  const int b = ns == 16 ? 0 : ns == 24 ? 1 : 2;
+  *slot = (with_grad * 2 + l1) * 3 + b;
+  if (!with_grad) {
+    if (ns != MAX_SLOTS) return nullptr;
+    return l1 ? raster_loss_live<false, true, MAX_SLOTS>
+              : raster_loss_live<false, false, MAX_SLOTS>;
+  }
+  switch (ns) {
+    case 16: return l1 ? raster_loss_live<true, true, 16> : raster_loss_live<true, false, 16>;
+    case 24: return l1 ? raster_loss_live<true, true, 24> : raster_loss_live<true, false, 24>;
+    case 32: return l1 ? raster_loss_live<true, true, 32> : raster_loss_live<true, false, 32>;
+  }
+  return nullptr;
+}
+
+// Resident blocks of kernel `k` on the whole card (the persistent grid),
+// computed once per instantiation.
+int persistent_grid(TileKernel k, int slot) {
+  static int cache[12] = {0};
+  if (cache[slot] == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, THREADS, 0);
+    cache[slot] = sms * per_sm;
+  }
+  return cache[slot];
 }
 
 }  // namespace skelsplat
 
 // C interface, bound with ctypes (ops/cuda_raster.py). All pointers are
-// device pointers of contiguous float32/int32 tensors; the caller allocates
-// part_f (V * n_f * n_tiles), part_c (V * n_tiles), S (V), C (V) and, with
-// with_grad, dg (V * N * 6). Returns the cudaError_t of the launches.
+// device pointers of contiguous tensors; the caller allocates live_idx
+// (V * n_tiles int32), live_mask (V * n_tiles int64), live_n (V int32),
+// view_done (V uint32), part_s (V * n_tiles float32), part_c (V * n_tiles
+// int32), with with_grad part_dg (V * N * n_tiles * 6 float32), S (V), C
+// (V) and, with with_grad, dg (V * N * 6), with n_tiles the 16x16 tiles
+// of the H x W grid. Two launches on `stream`, no host synchronisation;
+// the call's state lives in these buffers alone. Returns the cudaError_t
+// of the launches.
 extern "C" int skelsplat_raster_loss(const float* pack, const float* p1,
                                      const float* p2, const float* img, int V,
                                      int N, int H, int W, int l1,
-                                     int with_grad, float* part_f,
-                                     int* part_c, float* S, int* C, float* dg,
-                                     void* stream_ptr) {
+                                     int with_grad, int* live_idx,
+                                     unsigned long long* live_mask,
+                                     int* live_n, unsigned* view_done,
+                                     float* part_s, int* part_c,
+                                     float* part_dg, float* S, int* C,
+                                     float* dg, void* stream_ptr) {
   using namespace skelsplat;
   if (V < 1 || N < 1 || N > MAX_SLOTS || H < 1 || W < 1)
     return (int)cudaErrorInvalidValue;
+  const int n_tx = (W + TILE - 1) / TILE, n_ty = (H + TILE - 1) / TILE;
+  const size_t axis_bytes = (size_t)(n_tx + n_ty) * sizeof(Mask);
+  if (axis_bytes > 32 * 1024) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const dim3 grid((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, V);
-  if (with_grad) {
-    if (l1)
-      launch_tiles<true, true>(grid, stream, pack, p1, p2, img, N, H, W, part_f, part_c);
-    else
-      launch_tiles<true, false>(grid, stream, pack, p1, p2, img, N, H, W, part_f, part_c);
-  } else {
-    if (l1)
-      launch_tiles<false, true>(grid, stream, pack, p1, p2, img, N, H, W, part_f, part_c);
-    else
-      launch_tiles<false, false>(grid, stream, pack, p1, p2, img, N, H, W, part_f, part_c);
-  }
+  int slot = 0;
+  TileKernel k = pick(with_grad != 0, l1 != 0, slot_bound(N, with_grad != 0), &slot);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  live_tiles<<<V, LIST_THREADS, axis_bytes, stream>>>(
+      pack, N, n_tx, n_ty, live_idx, live_mask, live_n, view_done, with_grad,
+      S, C, dg);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int n_f = 1 + (with_grad ? N * N_GRAD : 0);
-  const int n_tiles = grid.x * grid.y;
-  reduce_tiles<<<dim3(n_f + 1, V), REDUCE_THREADS, 0, stream>>>(
-      part_f, part_c, n_f, n_tiles, S, C, dg);
+  const long long entries = (long long)V * n_tx * n_ty;
+  const int grid = (int)(entries < persistent_grid(k, slot)
+                             ? entries : persistent_grid(k, slot));
+  k<<<grid, THREADS, 0, stream>>>(pack, p1, p2, img, V, N, H, W, n_tx,
+                                  live_idx, live_mask, live_n, view_done,
+                                  part_s, part_c, part_dg, S, C, dg);
   return (int)cudaGetLastError();
+}
+
+// Registers per thread, local (spill) bytes per thread and resident blocks
+// per SM of the tile kernel instantiation for (with_grad, l1, ns); ns is
+// 16, 24 or 32 with a gradient and 32 without. Returns a cudaError_t.
+extern "C" int skelsplat_raster_loss_occupancy(int with_grad, int l1, int ns,
+                                               int* out) {
+  using namespace skelsplat;
+  int slot = 0;
+  TileKernel k = pick(with_grad != 0, l1 != 0, ns, &slot);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, k);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, THREADS, 0);
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = per_sm;
+  return (int)err;
+}
+
+// The slot bound of the tile kernel a call with N slots launches.
+extern "C" int skelsplat_raster_loss_slot_bound(int N, int with_grad) {
+  return skelsplat::slot_bound(N, with_grad != 0);
 }
 
 extern "C" const char* skelsplat_error_string(int err) {

@@ -125,8 +125,12 @@ def load_library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             vp, i32 = ctypes.c_void_p, ctypes.c_int
             lib.skelsplat_raster_loss.argtypes = (
-                [vp] * 4 + [i32] * 6 + [vp] * 6)
+                [vp] * 4 + [i32] * 6 + [vp] * 11)
             lib.skelsplat_raster_loss.restype = i32
+            lib.skelsplat_raster_loss_occupancy.argtypes = [i32] * 3 + [vp]
+            lib.skelsplat_raster_loss_occupancy.restype = i32
+            lib.skelsplat_raster_loss_slot_bound.argtypes = [i32, i32]
+            lib.skelsplat_raster_loss_slot_bound.restype = i32
             lib.skelsplat_issue_rate.argtypes = [vp, vp] + [i32] * 4 + [vp]
             lib.skelsplat_issue_rate.restype = i32
             lib.skelsplat_error_string.argtypes = [i32]
@@ -137,6 +141,26 @@ def load_library() -> ctypes.CDLL:
 
 def error_string(err: int) -> str:
     return load_library().skelsplat_error_string(err).decode()
+
+
+def occupancy(with_grad: bool, l1: bool, slot_bound: int) -> dict:
+    """Registers and local (spill) bytes per thread, and resident blocks per
+    SM, of the raster-loss tile kernel instantiated for (with_grad, l1,
+    slot_bound): 16, 24 or 32 with a gradient, 32 without."""
+    out = (ctypes.c_int * 3)()
+    rc = load_library().skelsplat_raster_loss_occupancy(
+        int(with_grad), int(l1), slot_bound, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"occupancy query failed: {error_string(rc)}")
+    return {"registers": out[0], "local_bytes": out[1],
+            "blocks_per_sm": out[2]}
+
+
+def slot_bound(n_slots: int, with_grad: bool = True) -> int:
+    """The slot bound of the tile kernel instantiation a call with
+    ``n_slots`` slots launches."""
+    return load_library().skelsplat_raster_loss_slot_bound(n_slots,
+                                                            int(with_grad))
 
 
 def main(argv=None) -> dict:

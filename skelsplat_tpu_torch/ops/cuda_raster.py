@@ -13,6 +13,11 @@ slot and makes ONE launch covering every view:
 * K2, ``raster_loss`` (replaces ``_fwd_kernel``): pass 1 only, for a loss
   evaluated without a gradient.
 
+On the card a call is two launches: the list of each view's live tiles
+(tiles some slot's rect or GT support meets, ``live_tiles_plain`` is its
+plain version), then a persistent grid over the lists that also sums each
+view's partials; the live-tile count never reaches the host.
+
 Each wrapper launches the kernel for CUDA tensors (counting the launch in
 ``launches``) and runs its plain PyTorch version, the same two passes over
 row chunks, for CPU tensors. Autograd sees ``_RasterLossFn``, whose backward
@@ -44,7 +49,8 @@ torch.set_float32_matmul_precision("highest")
 #  GT support rows gy0, gy1 and columns gx0, gx1 (pixels) | unused]
 PACK = 16
 N_GRAD = 6           # px, py, conic a, b, c, opa
-MAX_SLOTS = 32       # the kernel keeps per-slot α and T in registers
+MAX_SLOTS = 32       # the kernel keeps per-slot values in registers and
+                     # a tile's slots in one 64-bit mask
 IDX_PX, IDX_PY, IDX_CA, IDX_CB, IDX_CC, IDX_OPA = range(6)
 IDX_RX0, IDX_RY0, IDX_RX1, IDX_RY1, IDX_B = 6, 7, 8, 9, 10
 IDX_GY0, IDX_GY1, IDX_GX0, IDX_GX1 = 11, 12, 13, 14
@@ -113,8 +119,59 @@ def view_profiles(spec: hm.HeatmapSpec, W: int, H: int) -> ViewProfiles:
 
 
 # ---------------------------------------------------------------------------
-# Plain PyTorch versions of K1 and K2
+# Plain PyTorch versions of K1 and K2, and of K1's live-tile list
 # ---------------------------------------------------------------------------
+
+def tile_flags(pack, H: int, W: int):
+    """(rend, gt) (V,N,ty,tx) bool over the 16×16 tiles of an H×W grid:
+    slot i's rect covers the tile with opacity > 0 (render work), and its
+    GT support [gy0, gy1) × [gx0, gx1) meets the tile (GT terms), by the
+    kernel's float compares."""
+    V, N, _ = pack.shape
+    T = geometry.BLOCK_X
+    by = torch.arange(-(-H // T), dtype=torch.float32,
+                      device=pack.device).reshape(1, 1, -1, 1)
+    bx = torch.arange(-(-W // T), dtype=torch.float32,
+                      device=pack.device).reshape(1, 1, 1, -1)
+    y0, x0 = by * T, bx * T
+
+    def col(k):
+        return pack[:, :, k].reshape(V, N, 1, 1)
+
+    rend = ((col(IDX_OPA) > 0) & (bx >= col(IDX_RX0)) & (bx < col(IDX_RX1))
+            & (by >= col(IDX_RY0)) & (by < col(IDX_RY1)))
+    gt = ((col(IDX_GY0) < y0 + T) & (col(IDX_GY1) > y0)
+          & (col(IDX_GX0) < x0 + T) & (col(IDX_GX1) > x0))
+    return rend, gt
+
+
+def live_tiles_plain(pack, H: int, W: int):
+    """K1's live-tile list on any device: (live_idx (V, n_tiles) int32,
+    live_mask (V, n_tiles) int64, live_n (V,) int32). A tile (index
+    ty·ceil(W/16) + tx) is live when some slot flags it (``tile_flags``);
+    view v's live tiles come first in live_idx[v], ascending, with their
+    slot masks (bit i: slot i renders there, bit 32 + i: its GT support
+    meets it), and -1 and 0 fill the rest."""
+    rend, gt = tile_flags(pack, H, W)
+    V, N = pack.shape[:2]
+    bits = torch.arange(N, dtype=torch.int64, device=pack.device)
+    bits = torch.bitwise_left_shift(torch.ones_like(bits), bits)
+
+    def to_mask(f):  # (V,N,ty,tx) -> (V, n_tiles): sum of the set slot bits
+        return (f.reshape(V, N, -1).to(torch.int64)
+                * bits.reshape(1, N, 1)).sum(dim=1)
+
+    mask = to_mask(rend) | torch.bitwise_left_shift(to_mask(gt), 32)
+    live = mask != 0
+    live_n = live.sum(dim=1)
+    order = torch.argsort((~live).to(torch.uint8), dim=1, stable=True)
+    first = (torch.arange(live.shape[1], device=pack.device).reshape(1, -1)
+             < live_n.reshape(V, 1))
+    live_idx = torch.where(first, order, -1).to(torch.int32)
+    live_mask = torch.where(first, torch.take_along_dim(mask, order, dim=1),
+                            0)
+    return live_idx, live_mask, live_n.to(torch.int32)
+
 
 def _err(d, l1: bool):
     """|d| for the l1 family, d² for l2_gaussian."""
@@ -247,54 +304,70 @@ def _launch(pack, p1, p2, img, l1: bool, with_grad: bool):
     V, N, _ = pack.shape
     H, W = p1.shape[-1], p2.shape[-1]
     n_tiles = _build.n_tiles(W, H)
-    n_f = 1 + (N * N_GRAD if with_grad else 0)
     dev = pack.device
-    part_f = torch.empty(V * n_f * n_tiles, dtype=torch.float32, device=dev)
+    live_idx = torch.empty((V, n_tiles), dtype=torch.int32, device=dev)
+    live_mask = torch.empty((V, n_tiles), dtype=torch.int64, device=dev)
+    # each view's live count, then its counter of finished list entries
+    # (the tile kernel's last-block ticket, zeroed by the list kernel)
+    counts = torch.empty(2 * V, dtype=torch.int32, device=dev)
+    live_n, view_done = counts[:V], counts[V:]
+    # partials sized for every tile: the host never learns how many are live
+    # (that would be a sync); only the live tiles' are written and read
+    part_s = torch.empty(V * n_tiles, dtype=torch.float32, device=dev)
     part_c = torch.empty(V * n_tiles, dtype=torch.int32, device=dev)
+    part_dg = torch.empty(V * N * n_tiles * N_GRAD if with_grad else 1,
+                          dtype=torch.float32, device=dev)
     S = torch.empty(V, dtype=torch.float32, device=dev)
     C = torch.empty(V, dtype=torch.int32, device=dev)
     dg = torch.empty((V, N, N_GRAD) if with_grad else (1,),
                      dtype=torch.float32, device=dev)
     name = "raster_loss_grad" if with_grad else "raster_loss"
-    # the range names the launch in a profiler trace (tools/trace_summary.py)
+    # the range names the launches in a profiler trace (tools/trace_summary.py)
     with torch.cuda.device(dev), torch.profiler.record_function(
             f"skelsplat::{name}"):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.skelsplat_raster_loss(
             pack.data_ptr(), p1.data_ptr(), p2.data_ptr(), img.data_ptr(),
-            V, N, H, W, int(l1), int(with_grad),
-            part_f.data_ptr(), part_c.data_ptr(), S.data_ptr(),
+            V, N, H, W, int(l1), int(with_grad), live_idx.data_ptr(),
+            live_mask.data_ptr(), live_n.data_ptr(), view_done.data_ptr(),
+            part_s.data_ptr(),
+            part_c.data_ptr(), part_dg.data_ptr(), S.data_ptr(),
             C.data_ptr(), dg.data_ptr(), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"raster_loss kernel launch failed: "
                            f"{_build.error_string(rc)} (cudaError {rc})")
-    return S, C, (dg if with_grad else None)
+    return S, C, (dg if with_grad else None), (live_idx, live_mask, live_n)
 
 
-def raster_loss_grad(pack, p1, p2, img, l1: bool):
+def _run(pack, p1, p2, img, l1: bool, with_grad: bool, return_live: bool):
+    """(S, C, dg or None) and, with ``return_live``, the live-tile list:
+    by the kernel on a CUDA tensor, by the plain versions on a CPU tensor."""
+    _check_inputs(pack, p1, p2, img)
+    if pack.device.type == "cpu":
+        out = _raster_loss_plain(pack, p1, p2, img, l1, with_grad)
+        return (*out, live_tiles_plain(pack, p1.shape[-1], p2.shape[-1])) \
+            if return_live else out
+    if pack.device.type != "cuda":
+        raise ValueError(f"unsupported device {pack.device}")
+    out = _launch(pack, p1, p2, img, l1, with_grad)
+    launches["raster_loss_grad" if with_grad else "raster_loss"] += 1
+    return out if return_live else out[:3]
+
+
+def raster_loss_grad(pack, p1, p2, img, l1: bool, return_live: bool = False):
     """K1: (S (V,), C (V,) int32, dg (V,N,6)) of depth-sorted slot records
     ``pack`` (V,N,16) against profiles p1 (V,N,H), p2 (V,N,W) of the same
-    slot order and true image sizes ``img`` (V,2)."""
-    _check_inputs(pack, p1, p2, img)
-    if pack.device.type == "cpu":
-        return _raster_loss_plain(pack, p1, p2, img, l1, True)
-    if pack.device.type != "cuda":
-        raise ValueError(f"unsupported device {pack.device}")
-    out = _launch(pack, p1, p2, img, l1, True)
-    launches["raster_loss_grad"] += 1
-    return out
+    slot order and true image sizes ``img`` (V,2). With ``return_live``,
+    also the live-tile list the call used (``live_tiles_plain``'s triple;
+    on the card only the first live_n[v] entries of a view are set)."""
+    return _run(pack, p1, p2, img, l1, True, return_live)
 
 
-def raster_loss(pack, p1, p2, img, l1: bool):
-    """K2: (S (V,), C (V,) int32), pass 1 of K1."""
-    _check_inputs(pack, p1, p2, img)
-    if pack.device.type == "cpu":
-        return _raster_loss_plain(pack, p1, p2, img, l1, False)[:2]
-    if pack.device.type != "cuda":
-        raise ValueError(f"unsupported device {pack.device}")
-    S, C, _ = _launch(pack, p1, p2, img, l1, False)
-    launches["raster_loss"] += 1
-    return S, C
+def raster_loss(pack, p1, p2, img, l1: bool, return_live: bool = False):
+    """K2: (S (V,), C (V,) int32), pass 1 of K1; with ``return_live``,
+    also the live-tile list, as ``raster_loss_grad``."""
+    S, C, *rest = _run(pack, p1, p2, img, l1, False, return_live)
+    return (S, C, rest[1]) if return_live else (S, C)
 
 
 def raster_loss_grad_plain(pack, p1, p2, img, l1: bool):

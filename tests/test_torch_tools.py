@@ -210,10 +210,10 @@ def _torch_format_trace():
         x("cuda_runtime", "cudaMemcpyAsync", 9, 9, 300, 5, correlation=14),
         x("kernel", "void at::native::vectorized_elementwise_kernel<4>", 0, 7,
           120, 3, correlation=11, stream=7),
-        x("kernel", "void skelsplat::raster_loss_tiles<true, false>", 0, 7,
-          210, 80, correlation=12, stream=7),
-        x("kernel", "skelsplat::reduce_tiles", 0, 7, 290, 6, correlation=13,
+        x("kernel", "skelsplat::live_tiles", 0, 7, 210, 6, correlation=12,
           stream=7),
+        x("kernel", "void skelsplat::raster_loss_live<true, false, 24>", 0, 7,
+          216, 80, correlation=13, stream=7),
         x("gpu_memcpy", "Memcpy DtoH (Device -> Pinned)", 0, 7, 310, 2,
           correlation=14, stream=7),
         x("gpu_user_annotation", "skelsplat::raster_loss_grad", 0, 7, 210, 86),
@@ -242,8 +242,8 @@ def test_trace_summary_reads_torch_trace(tmp_path, capsys, suffix):
     assert tts.range_launches(events, "aten::mul") == {11}
     per_k, counts, by_op, n_op = tts.main([str(tmp_path), "--by-op",
                                            "--macros", "2"])
-    assert counts["void skelsplat::raster_loss_tiles<true, false>"] == 1
-    assert per_k["skelsplat::reduce_tiles"] == 6
+    assert counts["void skelsplat::raster_loss_live<true, false, 24>"] == 1
+    assert per_k["skelsplat::live_tiles"] == 6
     assert by_op == {"skelsplat::raster_loss_grad": 86, "aten::mul": 3,
                      "<unattributed>": 2}
     assert n_op["skelsplat::raster_loss_grad"] == 2
@@ -266,7 +266,7 @@ def test_launch_offsets():
     events.append({"ph": "X", "cat": "kernel", "name": "early", "pid": 0,
                    "tid": 7, "ts": 497, "dur": 1,
                    "args": {"correlation": 15}})
-    assert tts.launch_offsets(events) == {11: 10, 12: 5, 13: 75, 14: 10,
+    assert tts.launch_offsets(events) == {11: 10, 12: 5, 13: 1, 14: 10,
                                           15: -3}
 
 
@@ -289,6 +289,72 @@ def test_profiled_round_pads_both_edges(monkeypatch):
     edge = ("sleep", timing.PROFILE_EDGE_S)
     assert log == [edge, "call", "call", "call", "sync", edge, "step"]
     assert timing.PROFILE_EDGE_S > 0
+
+
+@pytest.mark.parametrize("lost", [1, 5])
+def test_cuda_ms_retakes_sessions_that_lost_records(monkeypatch, lost):
+    """A profiler session in which a kernel kept under half its records is
+    taken again; after PROFILE_ATTEMPTS such sessions cuda_ms raises."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    from skelsplat_tpu_torch.tools import timing
+
+    assert timing.PROFILE_ATTEMPTS == 5
+    reps = 10
+    # (name, device us per session, records) of each session's active round
+    sessions = [[("list", 50.0, reps), ("tile", 140.0, 3)]] * lost + \
+        [[("list", 60.0, reps), ("tile", 200.0, reps)]]
+    taken = []
+
+    class FakeProfile:
+        def __init__(self, activities, schedule, on_trace_ready):
+            self.ready, self.steps = on_trace_ready, 0
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def step(self):
+            self.steps += 1
+            if self.steps == 2:
+                taken.append(sessions[len(taken)])
+                self.ready(self)
+
+        def key_averages(self):
+            return [SimpleNamespace(key=k, device_time_total=t, count=n,
+                                    device_type=DeviceType.CUDA)
+                    for k, t, n in taken[-1]]
+
+    class FakeEvent:
+        def __init__(self, enable_timing):
+            pass
+
+        def record(self):
+            pass
+
+        def elapsed_time(self, other):
+            return 1.0
+
+    monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+    monkeypatch.setattr(torch.cuda, "Event", FakeEvent)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(timing.time, "sleep", lambda s: None)
+    per_kernel = {}
+    if lost >= timing.PROFILE_ATTEMPTS:
+        with pytest.raises(RuntimeError, match="in each of 5 sessions"):
+            timing.cuda_ms(lambda: None, reps, each_kernel_once=True)
+        assert len(taken) == timing.PROFILE_ATTEMPTS
+        return
+    ms, stream_ms = timing.cuda_ms(lambda: None, reps, each_kernel_once=True,
+                                   per_kernel=per_kernel)
+    assert len(taken) == lost + 1
+    assert ms == pytest.approx((60.0 + 200.0) / reps / 1e3)
+    assert per_kernel == pytest.approx({"list": 0.006, "tile": 0.02})
+    assert stream_ms == pytest.approx(1.0 / reps)
 
 
 @pytest.fixture(scope="module")
