@@ -48,11 +48,26 @@ Phases, each failing the script (nonzero exit) on any error:
              ``trace_summary`` with the launch count checked (taken
              again, up to 50 times, while the profiler drops kernel
              records).
+6. cli     — the sweep users run: a synthetic H36M tree from the port's
+             tools/make_synthetic_dataset.py (subjects S9 and S11, 64
+             frames at step 64 = 4 scenes, the H36M size table's mixed
+             1002/1000 x 1000 rig) under build/smoke/, trained in-process
+             by ``skelsplat_tpu_torch.train.main`` with the port's
+             h36m.yaml (17 joints, 500 iterations, accumulation 4,
+             save_images) changed only in data_root, end_scene_id=4 and
+             the run dir, then scored by ``skelsplat_tpu_torch.eval.main``.
+             The launch counts are read around train.main alone: exactly
+             500 K1 launches (125 a scene) and no K2. Checks every
+             artifact (the 4 result PLYs, input.ply, cameras.json, the
+             render and heatmap PNGs, train_summary.json), finite logged
+             errors, finite MPJPE, and an absolute MPJPE below the
+             initial guess's; prints the sweep's s/scene.
 
 The line before the last is {"kernels": [...], "off_path_kernels": [...]}:
-"kernels" lists the kernels the paths launched (K1 on the frame, K3 on
-the measurement path), "off_path_kernels" those the port holds that no
-path launches (K2, launches 0); the last line is {"ok": true, "device":
+"kernels" lists the kernels the paths launched (K1 on the frame, with
+its launches on the CLI sweep as "launches_cli"; K3 on the measurement
+path), "off_path_kernels" those the port holds that no path launches
+(K2, launches 0); the last line is {"ok": true, "device":
 {...}}. ``--profile`` adds a torch.profiler pass
 over one frame (device time by kernel, device busy share).
 """
@@ -79,6 +94,8 @@ LIVE_SLOTS = ("0", "1", "2", "4", "8", "12", "17")
 TRACE_LAUNCHES = 5
 TRACE_ATTEMPTS = 50
 TRACE_DIR = Path(__file__).resolve().parent / "build" / "traces"
+SMOKE_DIR = Path(__file__).resolve().parent / "build" / "smoke"
+CLI_SCENES = 4
 # dg tolerance relative to the largest |dg| of the same view and gradient
 # component (px, py, a, b, c or opa) over the slots: both sides sum ~1e5
 # per-pixel f32 terms, the kernel by warp/tile trees and the plain version
@@ -529,6 +546,74 @@ def trace_k1():
           f"{max(hi for _, hi in offsets):.1f} us", flush=True)
 
 
+def phase_cli():
+    """The CLI sweep over a synthetic H36M tree (phase 6). Returns (K1
+    launches in train.main, K2 launches there, s/scene, MPJPE results)."""
+    import shutil
+
+    from skelsplat_tpu_torch import eval as eval_cli
+    from skelsplat_tpu_torch import train as train_cli
+    from skelsplat_tpu_torch.data.loader import DataLoader
+    from skelsplat_tpu_torch.ops import cuda_raster as cr
+    from skelsplat_tpu_torch.tools import make_synthetic_dataset
+
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    root = SMOKE_DIR / "synth-h36m"   # the loader dispatches on "h36m"
+    run_dir = SMOKE_DIR / "run"
+    n = make_synthetic_dataset.write_tree(str(root), ["S9", "S11"], 64, 64,
+                                          image_size=1000)
+    assert n == CLI_SCENES, n
+    overrides = [f"dataset.data_root={root}",
+                 f"dataset.end_scene_id={CLI_SCENES}"]
+    loader = DataLoader(str(root), str(root / "initial_guess" / "metrabs"),
+                        str(root / "2d_metrabs"), end_id=CLI_SCENES)
+    init_mpjpe = float(np.mean([
+        np.linalg.norm(r.pose_3d - r.pose_3d_gt, axis=1).mean()
+        for _, r in loader]))
+
+    stdout = sys.stdout   # train.main's safe_state replaces it
+    for k in cr.launches:
+        cr.launches[k] = 0
+    try:
+        results = train_cli.main(["--config-name", "h36m.yaml", *overrides,
+                                  f"hydra.run.dir={run_dir}"])
+        torch.cuda.synchronize()
+    finally:
+        sys.stdout = stdout
+    counts = dict(cr.launches)
+    print(f"  train.main: {len(results)} scenes, launches {counts}",
+          flush=True)
+    assert counts == {"raster_loss_grad": CLI_SCENES * ITERATIONS // 4,
+                      "raster_loss": 0}, counts
+
+    names = [r["scene_name"] for r in results]
+    need = ([run_dir / "point_cloud" / f"iteration_{ITERATIONS}" / f"{s}.ply"
+             for s in names]
+            + [run_dir / "input.ply", run_dir / "cameras.json",
+               run_dir / "train_summary.json"]
+            + [run_dir / d / f"{stem}_{v}.png"
+               for d, stem in (("images", "render"), ("heatmaps", "heatmap"))
+               for v in range(N_VIEWS)])
+    missing = [str(p) for p in need if not p.is_file()]
+    assert len(names) == CLI_SCENES and not missing, (names, missing)
+    summary = json.loads((run_dir / "train_summary.json").read_text())
+    for r in summary["scenes"]:
+        assert np.isfinite(r["abs_error"]) and np.isfinite(r["rel_error"]), r
+        assert r["stopped_at"] == 0, r
+    print(f"  logged errors (abs, rel mm): "
+          f"{[(round(r['abs_error'], 3), round(r['rel_error'], 3)) for r in summary['scenes']]}",
+          flush=True)
+
+    res = eval_cli.main(["--config-name", "h36m.yaml", *overrides,
+                         f"eval.output_path={run_dir}"])[ITERATIONS]
+    print(f"  eval.main: absolute MPJPE {res['absolute']:.4f} mm, relative "
+          f"{res['relative']:.4f} mm; the initial guesses' {init_mpjpe:.4f} "
+          f"mm", flush=True)
+    assert np.isfinite(res["absolute"]) and np.isfinite(res["relative"]), res
+    assert res["absolute"] < init_mpjpe, (res, init_mpjpe)
+    return counts, summary["mean_seconds_per_scene"], res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -543,7 +628,7 @@ def main():
 
     from skelsplat_tpu_torch.tools.timing import card_line
 
-    print("[1/5] build", flush=True)
+    print("[1/6] build", flush=True)
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.load_library()
@@ -566,10 +651,10 @@ def main():
     print(f"  card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
 
-    print("[2/5] kernels against their plain versions", flush=True)
+    print("[2/6] kernels against their plain versions", flush=True)
     rows, timed = phase_kernels()
 
-    print("[3/5] path: one H36M frame through SceneTrainer.optimize_scene",
+    print("[3/6] path: one H36M frame through SceneTrainer.optimize_scene",
           flush=True)
     counts, s_per_frame, (e0, e1) = phase_path(args.profile)
     for row in rows:
@@ -578,16 +663,25 @@ def main():
           f"{ITERATIONS} iterations, 4 views at {W}x{H}) on {card}",
           flush=True)
 
-    print("[4/5] renderer agreement: cuda vs fused", flush=True)
+    print("[4/6] renderer agreement: cuda vs fused", flush=True)
     phase_agree()
 
-    print("[5/5] measurement path: K3, roofline, kernel_probe, "
+    print("[5/6] measurement path: K3, roofline, kernel_probe, "
           "trace_summary", flush=True)
     k1, k2 = rows
     k3_row, k1_bound, k2_bound = phase_measure(lib_path, k1["ms"], timed)
     for row, (ms, by) in ((k1, k1_bound), (k2, k2_bound)):
         row["bound_ms_measured_rate"], row["bound_by_measured_rate"] = ms, by
     rows.append(k3_row)
+
+    print("[6/6] cli: train.main and eval.main over a synthetic H36M tree",
+          flush=True)
+    cli_counts, s_per_scene, _ = phase_cli()
+    k1["launches_cli"] = cli_counts["raster_loss_grad"]
+    print(f"  {s_per_scene:.6f} s/scene (train_summary.json "
+          f"mean_seconds_per_scene; {CLI_SCENES} scenes, {ITERATIONS} "
+          f"iterations, 4 views at {W}x{H}, save_images) on {card}",
+          flush=True)
 
     print(card)
     print(json.dumps({

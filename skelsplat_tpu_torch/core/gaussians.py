@@ -101,3 +101,24 @@ class SkeletonModel:
     n_joints: int
     scaling: float = 3.0
     scaling_modifier: float = 1.0
+    opacity_on: bool = True
+
+    @classmethod
+    def for_dataset(cls, data_root: str, scaling: float = 3.0,
+                    scaling_modifier: float = 1.0, opacity_on: bool = True):
+        """The model of the dataset that ``data_root`` names."""
+        scene_type = scene_type_of(data_root)
+        return cls(scene_type, N_JOINTS[scene_type], scaling, scaling_modifier,
+                   opacity_on)
+
+
+def scene_type_of(data_root: str) -> str:
+    """The dataset a path names, by substring. Order matters: 'h36m-occ'
+    contains 'h36m'."""
+    if "panoptic" in data_root:
+        return "panoptic"
+    if "occlusion-person" in data_root:
+        return "occlusion-person"
+    if "h36m" in data_root:
+        return "h36m"
+    raise ValueError(f"Could not recognize scene type from {data_root!r}")

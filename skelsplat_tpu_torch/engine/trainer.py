@@ -155,16 +155,20 @@ def compose_macro(adam: AdamGroups, V_accum: int, use_stop: bool,
 
 
 def init_macro_carry(params, opt_state, nviews: int, use_stop: bool,
-                     general: bool):
+                     general: bool, hist8_init=None):
     """The carry matching compose_macro's layout (accumulated_grads starts
-    at zero and persists across macro steps)."""
+    at zero and persists across macro steps). With ``use_stop``,
+    ``hist8_init`` (a tensor: the previous scene's ``MacroHistory.hist8``)
+    seeds the early-stop window, which starts at +inf otherwise."""
     dev = params.xyz.device
     acc0 = ((torch.zeros((nviews,) + tuple(params.xyz.shape),
                          dtype=torch.float32, device=dev),)
             if (general or use_stop) else ())
     stopped = torch.zeros((), dtype=torch.bool, device=dev)
     if use_stop:
-        hist8 = torch.full((8,), float("inf"), dtype=torch.float32, device=dev)
+        hist8 = (torch.full((8,), float("inf"), dtype=torch.float32,
+                            device=dev) if hist8_init is None
+                 else hist8_init.to(dev, torch.float32))
         return (params, opt_state, hist8, stopped) + acc0
     return (params, opt_state, stopped) + acc0
 
@@ -189,6 +193,7 @@ class TrainSettings:
     early_stopping: str = "no_stopping"   # opt_early_stopping | no_stopping
     accumulation_steps: int = 4
     dropout: bool = False
+    std_dev_noise: float = 0.0  # σ (mm) of the noise added to the initial pose
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,7 +204,8 @@ class MacroHistory:
     error: torch.Tensor       # (K, N) per-joint absolute error ‖pred−gt‖
     error_rel: torch.Tensor   # (K, N) root-aligned error
     stopped_at: torch.Tensor  # int64, iteration of the early stop (0 = none)
-    hist8: torch.Tensor | None = None  # final loss window (early stopping)
+    # final loss window (early stopping): seeds the next scene's window
+    hist8: torch.Tensor | None = None
 
 
 class SceneTrainer:
@@ -287,12 +293,21 @@ class SceneTrainer:
                 losses.sum(), [p.xyz, p.log_scales, p.quats, p.opacity_logit])
         return losses.detach(), GaussianParams(*grads)
 
-    def host_inputs(self, initial_pose, poses_2d, pose_3d_gt=None,
-                    drop_mask=None):
-        """Host-side input normalization: dtypes and the dropout mask (a
-        host-drawn (V,N) bool mask, used when ``settings.dropout``).
-        Returns numpy (initial_pose, poses_2d, pose_3d_gt, drop_mask)."""
+    def host_inputs(self, initial_pose, poses_2d, cameras: Camera,
+                    pose_3d_gt=None, drop_mask=None):
+        """Host-side inputs of one scene: dtypes, the noise injection
+        (``settings.std_dev_noise``, from a seed-0 numpy generator made
+        anew for every scene), the dropout mask (a host-drawn (V,N) bool
+        mask, used when ``settings.dropout``) and the scene extent (the
+        spatial LR scale) from the camera centres. Pass ``cameras`` on the
+        CPU, as the driver does, and no device is involved. Returns numpy
+        (initial_pose, poses_2d, pose_3d_gt, drop_mask) and the extent."""
         initial_pose = np.asarray(initial_pose, dtype=np.float32)
+        if self.settings.std_dev_noise > 0.0:
+            rng = np.random.default_rng(seed=0)
+            initial_pose = (initial_pose + rng.normal(
+                0.0, self.settings.std_dev_noise, initial_pose.shape)
+            ).astype(np.float32)
         if pose_3d_gt is None:
             pose_3d_gt = np.zeros_like(initial_pose)
         poses_2d = np.ascontiguousarray(np.asarray(poses_2d)[..., :2],
@@ -302,24 +317,34 @@ class SceneTrainer:
             drop_mask = np.asarray(drop_mask, dtype=bool)
         else:
             drop_mask = np.zeros((nviews, n), dtype=bool)
+        extent = extent_from_centers(cameras.cam_center.detach().cpu().numpy())
         return (initial_pose, poses_2d,
-                np.asarray(pose_3d_gt, dtype=np.float32), drop_mask)
+                np.asarray(pose_3d_gt, dtype=np.float32), drop_mask, extent)
 
     def optimize_scene(self, initial_pose, poses_2d, cameras: Camera,
-                       pose_3d_gt=None, drop_mask=None, lean: bool = False):
+                       pose_3d_gt=None, drop_mask=None,
+                       checkpoint_iterations=(), checkpoint_fn=None,
+                       hist8_init=None, lean: bool = False):
         """Run the full optimization of one scene.
 
-        initial_pose (N,3); poses_2d (V,N,2+); cameras a batched Camera;
-        pose_3d_gt (N,3) for telemetry (zeros if absent). Returns
-        (params, MacroHistory), all on the device: nothing in the loop
-        waits for it. ``lean`` keeps only the last telemetry row (K=1).
+        initial_pose (N,3); poses_2d (V,N,2+); cameras a batched Camera
+        (on the CPU, or already on the device); pose_3d_gt (N,3) for
+        telemetry (zeros if absent). Returns (params, MacroHistory), all
+        on the device: nothing in the loop waits for it. ``lean`` keeps
+        only the last telemetry row (K=1).
+
+        ``checkpoint_fn(iteration, params)`` is called with the device
+        parameters after each macro step that ends an iteration of
+        ``checkpoint_iterations``, each rounded down to a macro boundary
+        (the iteration passed is the rounded one). ``hist8_init`` seeds
+        the early-stop window with the previous scene's
+        ``MacroHistory.hist8``: the reference's stopper is made once per
+        sweep, so its 8-loss window spans scene boundaries.
         """
         dev = self.device
-        init_np, p2d_np, gt_np, drop_np = self.host_inputs(
-            initial_pose, poses_2d, pose_3d_gt, drop_mask)
-        extent = torch.tensor(extent_from_centers(
-            cameras.cam_center.detach().cpu().numpy()), dtype=torch.float32,
-            device=dev)
+        init_np, p2d_np, gt_np, drop_np, extent = self.host_inputs(
+            initial_pose, poses_2d, cameras, pose_3d_gt, drop_mask)
+        extent = torch.full((), extent, dtype=torch.float32, device=dev)
         cameras = cameras.map(lambda x: x.to(dev))
         poses_2d, pose_3d_gt, drop_mask = (
             torch.as_tensor(a, device=dev) for a in (p2d_np, gt_np, drop_np))
@@ -331,9 +356,11 @@ class SceneTrainer:
         params, view_aux = self._prepare(init_np, poses_2d, cameras,
                                          drop_mask)
         carry = init_macro_carry(params, self.adam.init(params), nviews,
-                                 use_stop, general)
+                                 use_stop, general, hist8_init)
 
         K = self.n_macro
+        saves = {min(max(it // A, 0), K) for it in checkpoint_iterations}
+        saves.discard(0)
         ks = torch.arange(K, dtype=torch.int64, device=dev)
         # the reference visits views (k·A + j) mod V during macro step k
         idx_all = (ks[:, None] * A + torch.arange(A, device=dev)) % nviews
@@ -365,6 +392,8 @@ class SceneTrainer:
             if not lean:
                 err_h[k] = rec[1]
                 err_rel_h[k] = rec[2]
+            if checkpoint_fn is not None and k + 1 in saves:
+                checkpoint_fn((k + 1) * A, carry[0])
 
         params = carry[0]
         if lean:

@@ -1,0 +1,62 @@
+"""MPJPE evaluation over saved result clouds: the port's ``eval`` entry
+point (counterpart of the root ``eval.py``).
+
+    python -m skelsplat_tpu_torch.eval --config-name h36m.yaml \
+        [--device cuda|cpu] [eval.output_path=experiments/h36m/<date>/<time>] \
+        [overrides ...]
+
+``eval.output_path=<run dir>`` points at a run; without it the newest run
+dir of the config's template is used. The evaluation itself is numpy on
+the host; ``--device`` (default cuda) is checked like every entry point's.
+``eval.image_metrics=true`` (SSIM/LPIPS) is not ported yet and raises.
+"""
+
+import argparse
+import os
+
+EVAL_KEYS = ("eval.output_path", "eval.image_metrics", "eval.lpips_weights",
+             "eval.lpips_net")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--config-name", default="configs")
+    parser.add_argument("--config-path", default=None)
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default cuda)")
+    parser.add_argument("overrides", nargs="*")
+    args = parser.parse_args(argv)
+
+    from skelsplat_tpu_torch import resolve_device
+    from skelsplat_tpu_torch.config import (latest_run_dir, load_config,
+                                            parse_overrides)
+    from skelsplat_tpu_torch.evaluation import evaluate
+
+    resolve_device(args.device)
+    ovr = parse_overrides(args.overrides)
+    output_path = ovr.pop("eval.output_path", None)
+    if str(ovr.pop("eval.image_metrics", "false")).lower() in ("1", "true",
+                                                                "yes"):
+        raise SystemExit("eval.image_metrics=true is not ported to "
+                         "skelsplat_tpu_torch yet (ROADMAP.md §1 item 10)")
+    remaining = [o for o in args.overrides
+                 if o.split("=", 1)[0] not in EVAL_KEYS]
+
+    cfg = load_config(args.config_name, remaining,
+                      config_dir=args.config_path, make_run_dir=False)
+    dataset = cfg.dataset
+    debug = cfg.debug
+
+    if output_path is None:
+        output_path = latest_run_dir(cfg)
+    print("Evaluating ", output_path)
+
+    gt_path = os.path.join(dataset.data_root, "3d_gt")
+    iterations = list(debug.save_iterations)
+    return evaluate(gt_path, output_path, iterations, dataset.start_scene_id,
+                    dataset.end_scene_id, dataset.poses_2d == "cpn",
+                    nviews=dataset.nviews)
+
+
+if __name__ == "__main__":
+    main()

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from skelsplat_tpu_torch.core import geometry
@@ -157,3 +158,18 @@ def eval_heatmaps(spec: HeatmapSpec, W: int, H: int) -> torch.Tensor:
     inside = ((ys[:, None] < spec.height[..., None, None])
               & (xs[None, :] < spec.width[..., None, None]))
     return torch.where(inside, val, torch.zeros_like(val))
+
+
+def dropout_masks_torch(n_views: int, n_joints: int,
+                        generator: torch.Generator) -> np.ndarray:
+    """One scene's joint-dropout mask: 3 random cameras × 3 random joints
+    zeroed, drawn by two ``torch.randint`` calls on ``generator`` (a CPU
+    generator the caller seeds to 0 and draws from one scene at a time, in
+    dataset order). The camera draw's range is 4 whatever ``n_views``, as
+    the reference's is. Returns a host (n_views, n_joints) bool mask."""
+    cams = torch.randint(4, (3,), generator=generator).numpy()
+    joints = torch.randint(n_joints, (3,), generator=generator).numpy()
+    cam_hit = np.any(np.arange(n_views)[:, None] == cams[None, :], axis=-1)
+    joint_hit = np.any(
+        np.arange(n_joints)[:, None] == joints[None, :], axis=-1)
+    return cam_hit[:, None] & joint_hit[None, :]

@@ -230,18 +230,19 @@ def test_geometry_grads_match(rig):
 
 
 _ISOLATION = """
-import sys
+import importlib, pkgutil, sys
 import skelsplat_tpu_torch
-import skelsplat_tpu_torch.compat, skelsplat_tpu_torch.synthetic
-import skelsplat_tpu_torch.engine.trainer, skelsplat_tpu_torch.ops._build
-import skelsplat_tpu_torch.tools.roofline, skelsplat_tpu_torch.tools.kernel_probe
-import skelsplat_tpu_torch.tools.trace_summary, skelsplat_tpu_torch.tools.timing
-import skelsplat_tpu_torch.tools.trace_loss
-import chip_smoke
+names = [m.name for m in pkgutil.walk_packages(skelsplat_tpu_torch.__path__,
+                                               'skelsplat_tpu_torch.')]
+for name in names + ['chip_smoke']:
+    importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'skelsplat_tpu'))
 assert not bad, bad
-print('isolated')
+for name in ('config', 'data.loader', 'engine.driver', 'evaluation', 'train',
+             'eval', 'tools.make_synthetic_dataset', 'utils'):
+    assert 'skelsplat_tpu_torch.' + name in names, name
+print('isolated', len(names))
 """
 
 
@@ -252,7 +253,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "isolated" in out.stdout
 
 
-def test_default_device_entry_points_raise_without_a_gpu():
+def test_default_device_entry_points_raise_without_a_gpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
     from skelsplat_tpu_torch.engine.optim import OptConfig
@@ -280,3 +281,25 @@ def test_default_device_entry_points_raise_without_a_gpu():
         roofline.probe_issue_rate("mul")
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         trace_loss.main(["--seconds", "1"])
+
+    # the CLI and the data layer: a tiny synthetic H36M tree
+    from skelsplat_tpu_torch import eval as teval
+    from skelsplat_tpu_torch import train as ttrain
+    from skelsplat_tpu_torch.data import cameras_io
+    from skelsplat_tpu_torch.data.loader import DataLoader
+    from skelsplat_tpu_torch.tools import make_synthetic_dataset
+
+    root = str(tmp_path / "synth-h36m")
+    make_synthetic_dataset.write_tree(root, ["S9"], 64, 64, image_size=96)
+    loader = DataLoader(root, os.path.join(root, "initial_guess", "metrabs"),
+                        os.path.join(root, "2d_metrabs"), end_id=1)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        cameras_io.build_camera_batch(loader.scene_mapping[0].cameras)
+    run_dir = tmp_path / "run"
+    args = ["--config-name", "h36m.yaml", f"dataset.data_root={root}",
+            f"hydra.run.dir={run_dir}", f"eval.output_path={run_dir}"]
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        ttrain.main(args[:-1])
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        teval.main(args)
+    assert not run_dir.exists()
