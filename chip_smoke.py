@@ -14,13 +14,15 @@ Phases, each failing the script (nonzero exit) on any error:
              PyTorch versions on the card at H36M size (4 views, 1002×1000
              grid, 17 joints): a mixed 1000/1002-wide rig with l2_gaussian,
              the same with l1_gaussian, a rig with one splat behind a
-             camera, a 19-joint rig, and the mixed rig with one view that
-             has no live tile. C must match exactly; S and each gradient
-             component of dg within the stated tolerance; the view with no
-             live tile gives S, C and dg exactly 0; two K1 runs must be
-             bitwise equal; the live-tile list each kernel built must equal
-             live_tiles_plain's. Times each kernel, its plain version and
-             its bound.
+             camera, a 19-joint rig, the mixed rig with one view that
+             has no live tile, and a batched macro step's 32 views (8
+             scenes, each seen by its own mixed rig). C must match exactly;
+             S and each gradient component of dg within the stated
+             tolerance; the view with no live tile gives S, C and dg
+             exactly 0; two K1 runs must be bitwise equal; the live-tile
+             list each kernel built must equal live_tiles_plain's. Times
+             each kernel, its plain version and its bound, and K1 again
+             on the 32 views.
 3. path    — one synthetic H36M frame (4 views at 1002×1000, 17 joints,
              500 iterations = 125 macro steps, l2_gaussian + limb
              consistency) through SceneTrainer.optimize_scene(renderer=
@@ -62,14 +64,32 @@ Phases, each failing the script (nonzero exit) on any error:
              render and heatmap PNGs, train_summary.json), finite logged
              errors, finite MPJPE, and an absolute MPJPE below the
              initial guess's; prints the sweep's s/scene.
+7. batch   — the batched sweep: a 10-scene synthetic H36M tree at full
+             size (subjects S9 and S11, 192 frames at step 64, the first
+             10 scenes) under build/smoke/batch/, trained by train.main
+             with h36m.yaml, 500 iterations and save_images off, twice:
+             training.scene_batch=1 (exactly 1250 K1 launches) and
+             training.scene_batch=8 (groups of 8 and 2: exactly 250 K1
+             launches and no K2), each counted around its train.main
+             alone; both scored by eval.main. Checks every PLY, per-scene
+             logged errors of the two runs within BATCH_ATOL_MM, their
+             absolute MPJPE within BATCH_ATOL_MM, and the batched MPJPE
+             below the initial guesses'. Prints the largest per-scene
+             |Δxyz| between the runs, the serial s/scene, the batched
+             wall s/scene and a full batch's s/scene, then times
+             TIMED_BATCHES batches of 8 synthetic frames alone through
+             SceneTrainer.optimize_scene_batch (s/scene of a full batch,
+             through a host copy of xyz).
 
 The line before the last is {"kernels": [...], "off_path_kernels": [...]}:
 "kernels" lists the kernels the paths launched (K1 on the frame, with
-its launches on the CLI sweep as "launches_cli"; K3 on the measurement
-path), "off_path_kernels" those the port holds that no path launches
-(K2, launches 0); the last line is {"ok": true, "device":
-{...}}. ``--profile`` adds a torch.profiler pass
-over one frame (device time by kernel, device busy share).
+its launches on the CLI sweep as "launches_cli", on the batched sweep as
+"launches_batch" and its time, plain time and bounds on a batch's 32
+views as "*_v32"; K3 on the measurement path), "off_path_kernels" those
+the port holds that no path launches (K2, launches 0); the last line is
+{"ok": true, "device": {...}}. ``--profile`` adds a torch.profiler pass
+over one frame and over one batch of 8 frames (device time by kernel,
+device busy share).
 """
 
 from __future__ import annotations
@@ -87,6 +107,7 @@ W, H, N_JOINTS, N_VIEWS = 1002, 1000, 17, 4
 MIXED_WIDTHS = (1002, 1000, 1002, 1000)
 ITERATIONS = 500
 TIMED_FRAMES = 3  # timed frames after the checked one
+TIMED_BATCHES = 2  # phase 7's timed batches of SCENE_BATCH frames
 # the kernels optimize_scene launches (K1); the port's other kernel, K2
 # (raster_loss), is the no-grad loss, which the path never evaluates
 PATH_KERNELS = ("raster_loss_grad", "issue_rate")
@@ -96,6 +117,12 @@ TRACE_ATTEMPTS = 50
 TRACE_DIR = Path(__file__).resolve().parent / "build" / "traces"
 SMOKE_DIR = Path(__file__).resolve().parent / "build" / "smoke"
 CLI_SCENES = 4
+BATCH_SCENES = 10
+SCENE_BATCH = 8
+BATCH_DIR = SMOKE_DIR / "batch"
+# per-scene logged error and absolute MPJPE, batched sweep against serial:
+# a tenth of the port's 0.5 mm end-check bar
+BATCH_ATOL_MM = 0.05
 # dg tolerance relative to the largest |dg| of the same view and gradient
 # component (px, py, a, b, c or opa) over the slots: both sides sum ~1e5
 # per-pixel f32 terms, the kernel by warp/tile trees and the plain version
@@ -105,11 +132,16 @@ DG_RTOL = 1e-5
 
 
 def kernel_inputs(widths, behind_camera: bool, seed: int,
-                  n_joints: int = N_JOINTS, dead_view=None):
+                  n_joints: int = N_JOINTS, dead_view=None, scenes: int = 1):
     """Depth-sorted packs of one synthetic frame at a perturbed pose, with
-    every slot of ``dead_view`` (if given) dead."""
+    every slot of ``dead_view`` (if given) dead; with ``scenes`` > 1, of
+    that many frames' views at once, each frame seen by its own rig (a
+    batched macro step)."""
     from skelsplat_tpu_torch.tools import kernel_probe
 
+    if scenes > 1:
+        return kernel_probe.probe_inputs_batch(scenes, W, H, device="cuda",
+                                               widths=widths, perturb=True)
     pack, p1s, p2s, img = kernel_probe.probe_inputs(
         W, H, n_joints=n_joints, n_views=N_VIEWS, seed=seed, device="cuda",
         widths=widths, behind_camera=behind_camera, perturb=True)
@@ -141,18 +173,24 @@ def phase_kernels():
     from skelsplat_tpu_torch.tools.roofline import kernel_bound
     from skelsplat_tpu_torch.tools.timing import cuda_ms
 
-    # (name, widths, behind camera, l1, seed, joints, view with no live tile)
-    cases = [("mixed rig, l2_gaussian", MIXED_WIDTHS, False, False, 0, 17, None),
-             ("mixed rig, l1_gaussian", MIXED_WIDTHS, False, True, 0, 17, None),
+    # (name, widths, behind camera, l1, seed, joints, view with no live
+    # tile, scenes)
+    cases = [("mixed rig, l2_gaussian", MIXED_WIDTHS, False, False, 0, 17, None,
+              1),
+             ("mixed rig, l1_gaussian", MIXED_WIDTHS, False, True, 0, 17, None,
+              1),
              ("splat behind camera 0, l2_gaussian", None, True, False, 5, 17,
-              None),
-             ("19-joint rig, l2_gaussian", None, False, False, 0, 19, None),
+              None, 1),
+             ("19-joint rig, l2_gaussian", None, False, False, 0, 19, None, 1),
              ("mixed rig with view 2 dead, l2_gaussian", MIXED_WIDTHS, False,
-              False, 0, 17, 2)]
+              False, 0, 17, 2, 1),
+             (f"{SCENE_BATCH} scenes' mixed rigs, {SCENE_BATCH * N_VIEWS} "
+              f"views, l2_gaussian", MIXED_WIDTHS, False, False, 0, 17, None,
+              SCENE_BATCH)]
     err = {"raster_loss_grad": 0.0, "raster_loss": 0.0}
-    for name, widths, behind, l1, seed, n_joints, dead in cases:
+    for name, widths, behind, l1, seed, n_joints, dead, scenes in cases:
         pack, p1s, p2s, img = kernel_inputs(widths, behind, seed, n_joints,
-                                            dead)
+                                            dead, scenes)
         before = dict(cr.launches)
         S, C, dg, live = cr.raster_loss_grad(pack, p1s, p2s, img, l1,
                                              return_live=True)
@@ -172,7 +210,7 @@ def phase_kernels():
             and torch.equal(dg, dg_b), f"{name}: two K1 runs differ"
         assert torch.equal(C, Cp) and torch.equal(C2, C2p), \
             f"{name}: C {C.tolist()} vs plain {Cp.tolist()}"
-        views = [v for v in range(N_VIEWS) if v != dead]
+        views = [v for v in range(pack.shape[0]) if v != dead]
         assert bool((C[views] > 0).all()), f"{name}: empty mask"
         if dead is not None:
             assert int(ref[2][dead]) == 0
@@ -221,7 +259,19 @@ def phase_kernels():
               f"back to back); plain {plain_ms:.2f} ms device time "
               f"({plain_stream_ms:.2f} back to back); bound {b_ms:.6f} ms by "
               f"{b_by}", flush=True)
-    return rows, timed
+    # K1 again at a batched macro step's shapes (8 scenes' 32 views)
+    timed_b = kernel_inputs(MIXED_WIDTHS, False, 0, scenes=SCENE_BATCH)
+    ms, stream_ms = cuda_ms(lambda: cr.raster_loss_grad(*timed_b, False),
+                            reps=200, each_kernel_once=True)
+    plain_ms, _ = cuda_ms(lambda: cr.raster_loss_grad_plain(*timed_b, False),
+                          reps=2, warmup=1)
+    b_ms, b_by = kernel_bound(*timed_b, True)["published"]
+    rows[0].update({"ms_v32": ms, "plain_ms_v32": plain_ms,
+                    "bound_ms_v32": b_ms, "bound_by_v32": b_by})
+    print(f"  raster_loss_grad on {timed_b[0].shape[0]} views: {ms:.4f} "
+          f"ms/call device time ({stream_ms:.4f} ms back to back); plain "
+          f"{plain_ms:.2f} ms; bound {b_ms:.6f} ms by {b_by}", flush=True)
+    return rows, timed, timed_b
 
 
 def make_trainer(iterations: int, renderer: str):
@@ -304,16 +354,20 @@ def phase_path(profile: bool):
     s_per_frame = float(np.median(times))
 
     if profile:
-        profile_frame(trainer, init[1], p2d[1], cams, gt[1], s_per_frame)
+        profile_run(lambda: trainer.optimize_scene(init[1], p2d[1], cams,
+                                                   gt[1], lean=True),
+                    s_per_frame, "frame")
     return counts, s_per_frame, (e0, e1)
 
 
-def profile_frame(trainer, init, p2d, cams, gt, s_per_frame: float):
-    """Device time by kernel and the device busy share over one frame:
-    the sum of kernel durations over the profiled wall time, and over the
-    unprofiled s/frame (the profiler slows the host, not the kernels).
-    The wrapper ranges' device-side copies (user annotations, which span
-    the kernels they launch) are left out, so no kernel counts twice."""
+def profile_run(run, s_unprofiled: float, unit: str):
+    """Device time by kernel and the device busy share over one ``run``
+    (a frame or a batch of frames, returning (params, history)): the sum
+    of kernel durations over the profiled wall time, and over the
+    unprofiled time ``s_unprofiled`` (the profiler slows the host, not the
+    kernels). The wrapper ranges' device-side copies (user annotations,
+    which span the kernels they launch) are left out, so no kernel counts
+    twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -321,7 +375,7 @@ def profile_frame(trainer, init, p2d, cams, gt, s_per_frame: float):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        params, _ = trainer.optimize_scene(init, p2d, cams, gt, lean=True)
+        params, _ = run()
         params.xyz.cpu()
         wall = time.perf_counter() - t0
     rows = sorted(((e.device_time_total, e.count, e.key)
@@ -330,10 +384,10 @@ def profile_frame(trainer, init, p2d, cams, gt, s_per_frame: float):
                    and not e.is_user_annotation), reverse=True)
     assert rows, "the profiler recorded no kernel"
     busy = sum(r[0] for r in rows) / 1e6
-    print(f"  profile: {sum(r[1] for r in rows)} kernels, device busy "
-          f"{busy:.4f} s = {busy / wall:.4f} of the profiled wall "
-          f"{wall:.4f} s, {busy / s_per_frame:.4f} of the unprofiled "
-          f"{s_per_frame:.4f} s/frame", flush=True)
+    print(f"  profile of one {unit}: {sum(r[1] for r in rows)} kernels, "
+          f"device busy {busy:.4f} s = {busy / wall:.4f} of the profiled "
+          f"wall {wall:.4f} s, {busy / s_unprofiled:.4f} of the unprofiled "
+          f"{s_unprofiled:.4f} s", flush=True)
     for dev_us, count, key in rows[:12]:
         print(f"    {dev_us / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
 
@@ -358,12 +412,13 @@ def phase_agree():
     assert dl < 1e-5, dl
 
 
-def phase_measure(lib_path, k1_ms: float, timed):
+def phase_measure(lib_path, k1_ms: float, timed, timed_b):
     """The kernel-measurement path: K3's SASS, then roofline --probe and
     kernel_probe --dead --live-slots, K3 against its plain version at every
     probe's size, and a K1 trace read back by trace_summary. ``k1_ms`` is
     phase 2's K1 time on its inputs ``timed``. Returns (K3's kernels-line
-    row, K1's and K2's measured-rate bounds (ms, by) on ``timed``)."""
+    row, K1's and K2's measured-rate bounds (ms, by) on ``timed``, K1's on
+    the 32 views ``timed_b``)."""
     from skelsplat_tpu_torch.ops import cuda_raster as cr
     from skelsplat_tpu_torch.tools import kernel_probe, roofline
     from skelsplat_tpu_torch.tools.timing import cuda_ms
@@ -411,11 +466,12 @@ def phase_measure(lib_path, k1_ms: float, timed):
           f"{roof['bound']['exp_weight']:.2f} mix operations) on "
           f"{roof['card']}", flush=True)
     # the rows' measured-rate bounds, on the inputs whose time they report
-    bounds = [roofline.kernel_bound(*timed, grad, roof["rates"])["measured"]
-              for grad in (True, False)]
+    bounds = [roofline.kernel_bound(*x, grad, roof["rates"])["measured"]
+              for x, grad in ((timed, True), (timed, False), (timed_b, True))]
     print(f"  measured-rate bounds at phase 2's inputs: K1 "
           f"{bounds[0][0]:.6f} ms by {bounds[0][1]}, K2 {bounds[1][0]:.6f} ms "
-          f"by {bounds[1][1]}", flush=True)
+          f"by {bounds[1][1]}, K1 on {timed_b[0].shape[0]} views "
+          f"{bounds[2][0]:.6f} ms by {bounds[2][1]}", flush=True)
 
     # K3 against its plain version on each probe's input at its size: the
     # same IEEE operations in the same order, so bitwise equal (mix/1's
@@ -614,6 +670,123 @@ def phase_cli():
     return counts, summary["mean_seconds_per_scene"], res
 
 
+def phase_batch(card: str, profile: bool):
+    """The batched sweep against the serial one over a 10-scene synthetic
+    H36M tree (phase 7). Returns (K1 launches of the batched train.main,
+    the serial and batched summaries)."""
+    import math
+    import shutil
+
+    from skelsplat_tpu_torch import compat
+    from skelsplat_tpu_torch import eval as eval_cli
+    from skelsplat_tpu_torch import train as train_cli
+    from skelsplat_tpu_torch.core.cameras import stack_cameras
+    from skelsplat_tpu_torch.data import ply
+    from skelsplat_tpu_torch.data.loader import DataLoader
+    from skelsplat_tpu_torch.ops import cuda_raster as cr
+    from skelsplat_tpu_torch.synthetic import synthetic_inputs
+    from skelsplat_tpu_torch.tools import make_synthetic_dataset
+
+    shutil.rmtree(BATCH_DIR, ignore_errors=True)
+    root = BATCH_DIR / "synth-h36m"
+    n = make_synthetic_dataset.write_tree(str(root), ["S9", "S11"], 192, 64,
+                                          image_size=1000)
+    assert n >= BATCH_SCENES, n
+    overrides = [f"dataset.data_root={root}",
+                 f"dataset.end_scene_id={BATCH_SCENES}"]
+    loader = DataLoader(str(root), str(root / "initial_guess" / "metrabs"),
+                        str(root / "2d_metrabs"), end_id=BATCH_SCENES)
+    init_mpjpe = float(np.mean([
+        np.linalg.norm(r.pose_3d - r.pose_3d_gt, axis=1).mean()
+        for _, r in loader]))
+
+    runs = {}
+    for batch in (1, SCENE_BATCH):
+        run_dir = BATCH_DIR / f"run_b{batch}"
+        stdout = sys.stdout   # train.main's safe_state replaces it
+        for k in cr.launches:
+            cr.launches[k] = 0
+        try:
+            results = train_cli.main([
+                "--config-name", "h36m.yaml", *overrides,
+                "debug.save_images=false", f"training.scene_batch={batch}",
+                f"hydra.run.dir={run_dir}"])
+            torch.cuda.synchronize()
+        finally:
+            sys.stdout = stdout
+        counts = dict(cr.launches)
+        groups = math.ceil(BATCH_SCENES / batch)
+        print(f"  train.main, scene_batch={batch}: {len(results)} scenes, "
+              f"launches {counts} ({groups} groups)", flush=True)
+        assert counts == {"raster_loss_grad": groups * ITERATIONS // 4,
+                          "raster_loss": 0}, counts
+        names = [r["scene_name"] for r in results]
+        plys = [run_dir / "point_cloud" / f"iteration_{ITERATIONS}"
+                / f"{s}.ply" for s in names]
+        missing = [str(p) for p in plys if not p.is_file()]
+        assert len(names) == BATCH_SCENES and not missing, (names, missing)
+        summary = json.loads((run_dir / "train_summary.json").read_text())
+        res = eval_cli.main(["--config-name", "h36m.yaml", *overrides,
+                             f"eval.output_path={run_dir}"])[ITERATIONS]
+        print(f"  eval.main: absolute MPJPE {res['absolute']:.4f} mm, "
+              f"relative {res['relative']:.4f} mm", flush=True)
+        assert np.isfinite(res["absolute"]) and np.isfinite(res["relative"])
+        runs[batch] = (counts, summary, res,
+                       {s: ply.read_xyz(str(p)) for s, p in zip(names, plys)})
+
+    (_, serial, res_1, xyz_1), (counts, batched, res_b, xyz_b) = \
+        runs[1], runs[SCENE_BATCH]
+    assert "wall_seconds_per_scene" in batched and "pipelined_scenes" in serial
+    d_err = max(abs(a["abs_error"] - b["abs_error"])
+                for a, b in zip(serial["scenes"], batched["scenes"]))
+    d_xyz = max(float(np.abs(xyz_b[s] - xyz_1[s]).max()) for s in xyz_1)
+    bitwise = all(np.array_equal(xyz_b[s], xyz_1[s]) for s in xyz_1)
+    print(f"  batched vs serial: largest per-scene |Δ abs_error| {d_err:.3g} "
+          f"mm, |Δ MPJPE| {abs(res_b['absolute'] - res_1['absolute']):.3g} "
+          f"mm, largest per-scene |Δxyz| {d_xyz:.3g} mm (bitwise equal: "
+          f"{bitwise}); the initial guesses' MPJPE {init_mpjpe:.4f} mm",
+          flush=True)
+    assert all(a["scene_name"] == b["scene_name"] and b["stopped_at"] == 0
+               for a, b in zip(serial["scenes"], batched["scenes"]))
+    assert d_err <= BATCH_ATOL_MM, d_err
+    assert abs(res_b["absolute"] - res_1["absolute"]) <= BATCH_ATOL_MM
+    assert res_b["absolute"] < init_mpjpe, (res_b, init_mpjpe)
+    # one full batch alone, through a host copy of xyz, as phase 3 times a
+    # frame (the sweep's per-scene "seconds" overlap the next batch)
+    init, gt, p2d, cams_np = synthetic_inputs(SCENE_BATCH, W, H,
+                                              n_views=N_VIEWS, seed=0)
+    cams_b = stack_cameras([compat.camera_from_numpy(cams_np, device="cpu")]
+                           * SCENE_BATCH)
+    trainer = make_trainer(ITERATIONS, "cuda")
+
+    def run_batch():
+        return trainer.optimize_scene_batch(init, p2d, cams_b, gt, lean=True)
+
+    times = []
+    for _ in range(TIMED_BATCHES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, _ = run_batch()
+        xyz = params.xyz.cpu().numpy()
+        times.append(time.perf_counter() - t0)
+        assert np.isfinite(xyz).all()
+    s_per_batch = float(np.median(times))
+    print(f"  serial {serial['mean_seconds_per_scene']:.6f} s/scene "
+          f"(mean_seconds_per_scene); batched "
+          f"{batched['wall_seconds_per_scene']:.6f} s/scene "
+          f"(wall_seconds_per_scene), a full batch's scenes "
+          f"{batched['scenes'][0]['seconds']:.6f} s/scene (enqueue to "
+          f"result, overlapping the next batch); {BATCH_SCENES} scenes, "
+          f"{ITERATIONS} iterations, 4 views at {W}x{H}, on {card}",
+          flush=True)
+    print(f"  one batch of {SCENE_BATCH} frames alone: "
+          f"{[round(t, 6) for t in times]} s, {s_per_batch / SCENE_BATCH:.6f} "
+          f"s/scene (median) on {card}", flush=True)
+    if profile:
+        profile_run(run_batch, s_per_batch, f"batch of {SCENE_BATCH} frames")
+    return counts, serial, batched
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -628,7 +801,7 @@ def main():
 
     from skelsplat_tpu_torch.tools.timing import card_line
 
-    print("[1/6] build", flush=True)
+    print("[1/7] build", flush=True)
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.load_library()
@@ -651,10 +824,10 @@ def main():
     print(f"  card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
 
-    print("[2/6] kernels against their plain versions", flush=True)
-    rows, timed = phase_kernels()
+    print("[2/7] kernels against their plain versions", flush=True)
+    rows, timed, timed_b = phase_kernels()
 
-    print("[3/6] path: one H36M frame through SceneTrainer.optimize_scene",
+    print("[3/7] path: one H36M frame through SceneTrainer.optimize_scene",
           flush=True)
     counts, s_per_frame, (e0, e1) = phase_path(args.profile)
     for row in rows:
@@ -663,18 +836,21 @@ def main():
           f"{ITERATIONS} iterations, 4 views at {W}x{H}) on {card}",
           flush=True)
 
-    print("[4/6] renderer agreement: cuda vs fused", flush=True)
+    print("[4/7] renderer agreement: cuda vs fused", flush=True)
     phase_agree()
 
-    print("[5/6] measurement path: K3, roofline, kernel_probe, "
+    print("[5/7] measurement path: K3, roofline, kernel_probe, "
           "trace_summary", flush=True)
     k1, k2 = rows
-    k3_row, k1_bound, k2_bound = phase_measure(lib_path, k1["ms"], timed)
+    k3_row, k1_bound, k2_bound, k1_bound_b = phase_measure(
+        lib_path, k1["ms"], timed, timed_b)
     for row, (ms, by) in ((k1, k1_bound), (k2, k2_bound)):
         row["bound_ms_measured_rate"], row["bound_by_measured_rate"] = ms, by
+    k1["bound_ms_measured_rate_v32"], k1["bound_by_measured_rate_v32"] = \
+        k1_bound_b
     rows.append(k3_row)
 
-    print("[6/6] cli: train.main and eval.main over a synthetic H36M tree",
+    print("[6/7] cli: train.main and eval.main over a synthetic H36M tree",
           flush=True)
     cli_counts, s_per_scene, _ = phase_cli()
     k1["launches_cli"] = cli_counts["raster_loss_grad"]
@@ -682,6 +858,11 @@ def main():
           f"mean_seconds_per_scene; {CLI_SCENES} scenes, {ITERATIONS} "
           f"iterations, 4 views at {W}x{H}, save_images) on {card}",
           flush=True)
+
+    print("[7/7] batch: train.main at scene_batch 1 and 8 over a 10-scene "
+          "synthetic H36M tree", flush=True)
+    batch_counts, _, _ = phase_batch(card, args.profile)
+    k1["launches_batch"] = batch_counts["raster_loss_grad"]
 
     print(card)
     print(json.dumps({

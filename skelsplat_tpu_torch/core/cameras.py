@@ -110,6 +110,13 @@ def make_camera(R: np.ndarray, T: np.ndarray, K: np.ndarray,
 
 
 def stack_cameras(cams: list[Camera]) -> Camera:
-    """Stack V single Cameras into one batched Camera (leading axis V)."""
+    """Stack V single Cameras into one batched Camera (leading axis V), or
+    B scenes' V-view Cameras into one with leading axes (B, V)."""
     return Camera(**{f: torch.stack([getattr(c, f) for c in cams])
                      for f in FIELDS})
+
+
+def flatten_scenes(cams: Camera) -> Camera:
+    """A (B, V)-batched Camera as a (B·V)-batched one: scene b's view v
+    at index b·V + v."""
+    return cams.map(lambda x: x.reshape((-1,) + tuple(x.shape[2:])))

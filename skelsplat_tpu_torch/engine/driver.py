@@ -16,6 +16,12 @@ an RPC tunnel and give results identical to this loop, so the
 ``pipeline_scenes``, ``fetch_scenes`` and ``chain_scenes`` keys are
 accepted and change nothing. What the port does not have yet raises
 ``SystemExit`` (see ``check_ported``).
+
+``training.scene_batch=B`` runs consecutive scenes of one (W, H, V) shape
+B at a time through ``SceneTrainer.optimize_scene_batch``
+(``_training_batched``), where nothing needs the per-scene path: no
+dropout, no noise, no early stopping and no save before the last
+iteration, the JAX driver's rule.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import torch
 
 from skelsplat_tpu_torch import losses as loss_registry
 from skelsplat_tpu_torch import resolve_device
+from skelsplat_tpu_torch.core.cameras import stack_cameras
 from skelsplat_tpu_torch.core.gaussians import (SkeletonModel, init_params,
                                                 scene_type_of)
 from skelsplat_tpu_torch.data import cameras_io, ply
@@ -79,8 +86,7 @@ def train_settings_from(training_group) -> TrainSettings:
     )
 
 
-def check_ported(training_group, pipe, settings: TrainSettings,
-                 save_iterations, iterations: int):
+def check_ported(training_group, pipe, settings: TrainSettings):
     """Raise ``SystemExit`` for a configuration that needs what the port
     does not have yet, rather than run another path."""
     def missing(what, item):
@@ -101,14 +107,18 @@ def check_ported(training_group, pipe, settings: TrainSettings,
         missing("training.multichip=true", 11)
     if bool(getattr(pipe, "debug", False)):
         missing("pipeline.debug=true", 9)
-    # the JAX driver batches exactly when nothing needs the per-scene path
-    batchable = (int(getattr(training_group, "scene_batch", 1) or 1) > 1
-                 and not settings.dropout and settings.std_dev_noise == 0.0
-                 and settings.early_stopping == "no_stopping"
-                 and all(it >= iterations or it <= 0
-                         for it in save_iterations))
-    if batchable:
-        missing("training.scene_batch > 1 (same-chip scene batching)", 9)
+
+
+def batchable(training_group, settings: TrainSettings, save_iterations,
+              iterations: int) -> bool:
+    """Whether the sweep runs its scenes in batches: ``scene_batch`` > 1
+    and nothing that needs the per-scene path (dropout, noise, early
+    stopping, whose window spans scene boundaries, or a save before the
+    last iteration), as the JAX driver decides."""
+    return (int(getattr(training_group, "scene_batch", 1) or 1) > 1
+            and not settings.dropout and settings.std_dev_noise == 0.0
+            and settings.early_stopping == "no_stopping"
+            and all(it >= iterations or it <= 0 for it in save_iterations))
 
 
 def _parse_scene_name(scene_name: str, data_root: str):
@@ -190,16 +200,39 @@ def _log_tb_history(tb_writer, subject, activity, step, losses_k, err_k,
                              float(err_rel_k[k].mean()), it)
 
 
-def _fetch(tensors):
-    """The device tensors as numpy arrays, through one host copy (float32;
-    the int64 stop iteration is exact in it)."""
-    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
-    host = flat.cpu().numpy()
-    out, at = [], 0
-    for t in tensors:
-        out.append(host[at:at + t.numel()].reshape(t.shape))
-        at += t.numel()
-    return out
+class _Fetch:
+    """One host copy of device tensors, started now and read later: they
+    are packed into one flat float32 tensor (the int64 stop iteration is
+    exact in it) and, on the GPU, copied without blocking into pinned host
+    memory, with an event recorded behind the copy. ``result()`` waits for
+    that event alone, so work enqueued after the copy (the next batch) is
+    not waited for."""
+
+    def __init__(self, tensors):
+        self.shapes = [tuple(t.shape) for t in tensors]
+        flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
+        self.event = None
+        if flat.device.type == "cuda":
+            self.host = torch.empty(flat.shape, dtype=flat.dtype,
+                                    pin_memory=True)
+            self.host.copy_(flat, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = flat.cpu()
+
+    def result(self):
+        """The tensors as numpy arrays, once the copy has landed."""
+        if self.event is not None:
+            self.event.synchronize()
+        host = self.host.numpy()
+        out, at = [], 0
+        for shape in self.shapes:
+            n = int(np.prod(shape, dtype=np.int64))
+            out.append(host[at:at + n].reshape(shape))
+            at += n
+        return out
+
 
 
 def training(dataset, model_group, opt_group, pipe, debug, training_group,
@@ -215,8 +248,7 @@ def training(dataset, model_group, opt_group, pipe, debug, training_group,
     save_iterations = list(debug.save_iterations)
     if opt_cfg.iterations not in save_iterations:
         save_iterations.append(opt_cfg.iterations)
-    check_ported(training_group, pipe, settings, save_iterations,
-                 opt_cfg.iterations)
+    check_ported(training_group, pipe, settings)
 
     # +debug.tensorboard=false turns the TensorBoard log off, and with it
     # the per-macro telemetry (only each scene's last row is then kept)
@@ -233,6 +265,11 @@ def training(dataset, model_group, opt_group, pipe, debug, training_group,
                     "%d joints", pipe.rendering,
                     RENDERING_CHANNELS[pipe.rendering],
                     dataset_loader.n_joints)
+    if batchable(training_group, settings, save_iterations,
+                 opt_cfg.iterations):
+        return _training_batched(dataset, dataset_loader, model, opt_cfg,
+                                 settings, pipe, int(training_group.scene_batch),
+                                 output_dir, tb_writer, log, dev)
     if int(getattr(training_group, "scene_batch", 1) or 1) > 1:
         log.info("scene_batch>1 requested but dropout/noise/save_iterations/"
                  "early_stopping need the per-scene path; batching disabled")
@@ -331,7 +368,7 @@ def training(dataset, model_group, opt_group, pipe, debug, training_group,
             telemetry += [history.losses, history.error, history.error_rel]
         saved = [t for _, prm in pending for t in
                  (prm.xyz, prm.log_scales, prm.quats, prm.opacity_logit)]
-        host = _fetch(telemetry + saved)
+        host = _Fetch(telemetry + saved).result()
         dt = time.perf_counter() - t0
         total_opt_seconds += dt
 
@@ -381,6 +418,120 @@ def training(dataset, model_group, opt_group, pipe, debug, training_group,
                    "sum_scene_latency_seconds": total_opt_seconds,
                    "pipelined_scenes": False}, f,
                   indent=2)
+    if tb_writer is not None:
+        tb_writer.close()
+    print("Training completed.")
+    return results
+
+
+def _training_batched(dataset, dataset_loader: DataLoader, model, opt_cfg,
+                      settings: TrainSettings, pipe, scene_batch: int,
+                      output_dir: str, tb_writer, log, dev):
+    """The batched sweep (counterpart of the JAX driver's
+    ``_training_batched``): consecutive scenes of one (W, H, V) shape in
+    groups of up to ``scene_batch``, each group one
+    ``optimize_scene_batch`` call, one trainer per shape. Each scene's
+    result PLY goes under ``point_cloud/iteration_{stop or iterations}``;
+    no debug PNGs are written. One batch stays in flight: batch k's results
+    start their copy to the host as soon as batch k is enqueued, and its
+    files are written after batch k+1 is enqueued. Per-scene "seconds" is
+    the batch's enqueue-to-result time over its size, so batches overlap;
+    ``wall_seconds_per_scene`` is the sweep's wall time per scene."""
+    records = [rec for _, rec in dataset_loader]
+    log.info(f"Training on {len(records)} scenes in batches of up to "
+             f"{scene_batch}")
+    results = []
+    trainers: dict[tuple, SceneTrainer] = {}
+    total = 0.0
+    sweep_t0 = time.perf_counter()
+
+    def finalize(group, fetch, t0):
+        nonlocal total
+        host = fetch.result()
+        dt = time.perf_counter() - t0
+        total += dt
+        xyz, log_scales, quats, opacity, stopped, err_b, err_rel_b = host[:7]
+        for b, rec in enumerate(group):
+            stop_it = int(stopped[b])
+            ply.write_gaussian_ply(
+                os.path.join(output_dir, "point_cloud",
+                             f"iteration_{stop_it or opt_cfg.iterations}",
+                             f"{rec.scene_name}.ply"),
+                xyz[b], log_scales[b], quats[b], opacity[b])
+            subject, activity, step = _parse_scene_name(rec.scene_name,
+                                                        dataset.data_root)
+            err, err_rel = err_b[b], err_rel_b[b]
+            if subject == "S9" and activity in S9_BAD:
+                err = np.zeros_like(err)    # bad calibration: not logged
+            if tb_writer is not None:
+                _log_tb_history(tb_writer, subject, activity, step,
+                                *(h[b] for h in host[7:10]),
+                                settings.accumulation_steps)
+            results.append({
+                "scene_id": rec.scene_id,
+                "scene_name": rec.scene_name,
+                "abs_error": float(err.mean()),
+                "rel_error": float(err_rel.mean()),
+                "seconds": dt / len(group),
+                "stopped_at": stop_it,
+            })
+        log.info(f"Batch of {len(group)} scenes: {dt:.2f}s "
+                 f"({dt / len(group):.3f} s/scene)")
+
+    def shape_key(rec):
+        cams = cameras_io.build_camera_batch(rec.cameras, device="cpu")
+        return (int(cams.width.max()), int(cams.height.max()),
+                len(rec.cameras)), cams
+
+    pending = None
+    i = 0
+    while i < len(records):
+        key, cams0 = shape_key(records[i])
+        group, cams = [records[i]], [cams0]
+        i += 1
+        while i < len(records) and len(group) < scene_batch:
+            key2, cams2 = shape_key(records[i])
+            if key2 != key:
+                break
+            group.append(records[i])
+            cams.append(cams2)
+            i += 1
+        if key not in trainers:
+            W, H, _ = key
+            trainers[key] = SceneTrainer(
+                model, opt_cfg, settings, W, H,
+                antialiasing=bool(pipe.antialiasing), renderer="cuda",
+                device=dev)
+
+        _save_scene_artifacts(output_dir, group[-1])
+        t0 = time.perf_counter()
+        params, history = trainers[key].optimize_scene_batch(
+            np.stack([r.pose_3d for r in group]),
+            np.stack([np.asarray(r.poses_2d)[..., :2] for r in group]),
+            stack_cameras(cams), np.stack([r.pose_3d_gt for r in group]),
+            lean=tb_writer is None)
+        telemetry = [params.xyz, params.log_scales, params.quats,
+                     params.opacity_logit, history.stopped_at,
+                     history.error[:, -1], history.error_rel[:, -1]]
+        if tb_writer is not None:
+            telemetry += [history.losses, history.error, history.error_rel]
+        fetch = _Fetch(telemetry)
+        # batch k-1's files, now that batch k is enqueued behind its copy
+        if pending is not None:
+            finalize(*pending)
+        pending = (group, fetch, t0)
+    if pending is not None:
+        finalize(*pending)
+
+    n = max(len(results), 1)
+    wall = time.perf_counter() - sweep_t0
+    log.info(f"Training completed. {len(results)} scenes, "
+             f"{wall / n:.3f} s/scene mean (wall)")
+    with open(os.path.join(output_dir, "train_summary.json"), "w") as f:
+        json.dump({"scenes": results,
+                   "mean_seconds_per_scene": total / n,
+                   "wall_clock_sweep_seconds": wall,
+                   "wall_seconds_per_scene": wall / n}, f, indent=2)
     if tb_writer is not None:
         tb_writer.close()
     print("Training completed.")

@@ -7,6 +7,10 @@
 The xyz group's lr is expon_lr at the optimizer step's iteration, scaled by
 the scene extent. Written out by hand so the state is plain tensors and
 the step stays on the device: no host sync, no Python branch on a value.
+
+Parameters may carry leading scene axes (a batch of B scenes: fields
+(B,N,·)); the step count, the iteration and the extent then carry the
+same axes, one value per scene.
 """
 
 from __future__ import annotations
@@ -55,7 +59,8 @@ class AdamGroups:
     def init(self, params: GaussianParams) -> AdamState:
         zeros = params.map(torch.zeros_like)
         return AdamState(m=zeros, v=zeros,
-                         t=torch.zeros((), dtype=torch.int32,
+                         t=torch.zeros(params.xyz.shape[:-2],
+                                       dtype=torch.int32,
                                        device=params.xyz.device))
 
     def xyz_lr(self, iteration, spatial_lr_scale=1.0):
@@ -71,7 +76,9 @@ class AdamGroups:
              state: AdamState, iteration: torch.Tensor,
              spatial_lr_scale=1.0) -> tuple[GaussianParams, AdamState]:
         """One Adam step; ``iteration`` is the (1-based) inner iteration at
-        which the step fires (it sets the xyz LR)."""
+        which the step fires (it sets the xyz LR). With leading scene axes
+        on ``params``, ``iteration``, ``state.t`` and ``spatial_lr_scale``
+        hold one value per scene (or one for all)."""
         c = self.cfg
         t = state.t + 1
         tf = t.to(torch.float32)
@@ -81,10 +88,11 @@ class AdamGroups:
                              c.scaling_lr, c.rotation_lr, c.opacity_lr)
 
         def upd(p, g, m, v, lr):
+            lr, b1, b2 = (_per_scene(x, p) for x in (lr, bc1, bc2))
             m = BETA1 * m + (1.0 - BETA1) * g
             v = BETA2 * v + (1.0 - BETA2) * g * g
-            denom = torch.sqrt(v / bc2) + EPS
-            return p - lr * (m / bc1) / denom, m, v
+            denom = torch.sqrt(v / b2) + EPS
+            return p - lr * (m / b1) / denom, m, v
 
         out = [upd(*(getattr(x, f) for x in (params, grads, state.m, state.v,
                                              lrs)))
@@ -92,3 +100,11 @@ class AdamGroups:
         new_p, new_m, new_v = (GaussianParams(*(o[k] for o in out))
                                for k in range(3))
         return new_p, AdamState(m=new_m, v=new_v, t=t)
+
+
+def _per_scene(x, p: torch.Tensor):
+    """A per-scene value (a tensor over the scene axes, or a float) shaped
+    to broadcast against the (…,N,·) field ``p``."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    return x.reshape(tuple(x.shape) + (1,) * (p.dim() - x.dim()))

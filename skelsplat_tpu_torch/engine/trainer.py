@@ -14,6 +14,12 @@ loop over macro steps that never waits on the device: every decision
 Early stopping is exact for every (nviews, accumulation_steps): the
 reference's 8-loss window check runs against a rolling history, and a
 mid-macro stop steps with the reference's mixed fresh/stale gradients.
+
+``optimize_scene_batch`` runs B independent scenes of one (W, H, V) shape
+at once: each macro step is one preprocess and one kernel launch over the
+B·A visited views and one backward, and compose, Adam and the early-stop
+window are per scene. The composition functions take leading scene axes
+on every carried tensor, so one scene and a batch run the same code.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ import torch
 
 from skelsplat_tpu_torch import losses as loss_registry
 from skelsplat_tpu_torch import resolve_device
-from skelsplat_tpu_torch.core.cameras import Camera
+from skelsplat_tpu_torch.core.cameras import Camera, flatten_scenes
 from skelsplat_tpu_torch.core.gaussians import (GaussianParams, SkeletonModel,
                                                 init_params)
 from skelsplat_tpu_torch.engine.optim import AdamGroups, OptConfig
@@ -42,49 +48,58 @@ def stop_offset(hist8, cur, tol):
     """First inner-iteration offset m ∈ {1..A} at which the reference's
     8-loss window check fires during this macro step.
 
-    ``hist8`` holds the 8 most recent per-iteration losses (+inf-padded
-    while the history is short); ``cur`` this macro's A per-view losses in
-    visit order. After m of them the check compares full[m+4:m+8] with
+    ``hist8`` (…,8) holds the 8 most recent per-iteration losses
+    (+inf-padded while the history is short); ``cur`` (…,A) this macro's A
+    per-view losses in visit order; leading scene axes give each scene its
+    own window. After m of them the check compares full[m+4:m+8] with
     full[m:m+4] of the concatenated (8+A,) vector; a window touching a pad
     entry compares false (|inf−x| = inf, |inf−inf| = nan).
 
     Returns (stop_now, m_star, new_hist8) with m_star = A when no stop and
     new_hist8 the 8 losses ending at the stop offset.
     """
-    A = cur.shape[0]
-    full = torch.cat([hist8, cur])
+    A = cur.shape[-1]
+    full = torch.cat([hist8, cur], dim=-1)
     conds = torch.stack([
-        torch.all(torch.abs(full[m:m + 4] - full[m + 4:m + 8]) < tol)
-        for m in range(1, A + 1)])
-    stop_now = torch.any(conds)
-    m_star = torch.where(stop_now, torch.argmax(conds.to(torch.uint8)) + 1,
+        torch.all(torch.abs(full[..., m:m + 4] - full[..., m + 4:m + 8]) < tol,
+                  dim=-1)
+        for m in range(1, A + 1)], dim=-1)
+    stop_now = torch.any(conds, dim=-1)
+    m_star = torch.where(stop_now,
+                         torch.argmax(conds.to(torch.uint8), dim=-1) + 1,
                          torch.full((), A, dtype=torch.int64,
                                     device=cur.device))
-    new_hist8 = full[m_star + torch.arange(8, device=full.device)]
+    new_hist8 = torch.take_along_dim(
+        full, m_star[..., None] + torch.arange(8, device=full.device), dim=-1)
     return stop_now, m_star, new_hist8
 
 
 def _telemetry_norms(pred, pose_3d_gt):
-    """Absolute and pelvis-relative per-joint errors."""
-    err = torch.linalg.vector_norm(pred - pose_3d_gt, dim=1)
+    """Absolute and pelvis-relative per-joint errors of (…,N,3) joints."""
+    err = torch.linalg.vector_norm(pred - pose_3d_gt, dim=-1)
     err_rel = torch.linalg.vector_norm(
-        (pred - pred[0]) - (pose_3d_gt - pose_3d_gt[0]), dim=1)
+        (pred - pred[..., :1, :]) - (pose_3d_gt - pose_3d_gt[..., :1, :]),
+        dim=-1)
     return err, err_rel
 
 
 def _last_visit_rows(acc_gx, grads_xyz, idxs, m_star):
     """The reference's sequential ``accumulated_grads[view] = grad`` writes
     of visit offsets j < m_star (the last visit of a view wins; other rows
-    keep their stale value), as one gather."""
-    A, nv = idxs.shape[0], acc_gx.shape[0]
+    keep their stale value), as one gather. ``acc_gx`` (…,V,N,3),
+    ``grads_xyz`` (…,A,N,3), ``m_star`` (…) per scene; ``idxs`` (A,) the
+    visit order, the same in every scene."""
+    A, nv = idxs.shape[0], acc_gx.shape[-3]
     offs = torch.arange(A, device=idxs.device)
     visits = ((idxs[:, None] == torch.arange(nv, device=idxs.device)[None, :])
-              & (offs[:, None] < m_star))
+              & (offs[:, None] < m_star[..., None, None]))
     j_last = torch.amax(torch.where(visits, offs[:, None],
                                     torch.full_like(visits, -1, dtype=offs.dtype)),
-                        dim=0)
-    return torch.where((j_last >= 0)[:, None, None],
-                       grads_xyz[torch.clamp(j_last, min=0)], acc_gx)
+                        dim=-2)
+    rows = torch.take_along_dim(grads_xyz,
+                                torch.clamp(j_last, min=0)[..., None, None],
+                                dim=-3)
+    return torch.where((j_last >= 0)[..., None, None], rows, acc_gx)
 
 
 def compose_macro(adam: AdamGroups, V_accum: int, use_stop: bool,
@@ -94,11 +109,15 @@ def compose_macro(adam: AdamGroups, V_accum: int, use_stop: bool,
 
     ``carry`` = (params, opt_state, [hist8,] stopped[, acc_gx]);
     ``losses_v``/``grads_v`` hold the A visited views' losses/grads in visit
-    order (leading axis A), ``idxs`` their view indices, ``k`` the 0-based
-    macro index as a device tensor. Returns (new_carry, rec) with rec =
-    (losses_v, err, err_rel, stop_mark), or (losses_v, stop_mark) when
-    ``lean``.
+    order (axis A after the scene axes), ``idxs`` their view indices, ``k``
+    the 0-based macro index as a device tensor. Every carried tensor, the
+    losses, grads, ``pose_3d_gt`` and ``spatial_lr_scale`` may carry leading
+    scene axes: each scene composes, steps and stops on its own. Returns
+    (new_carry, rec) with rec = (losses_v, err, err_rel, stop_mark), or
+    (losses_v, stop_mark) when ``lean``.
     """
+    lead = tuple(losses_v.shape[:-1])
+    dev = losses_v.device
     acc_gx = None
     if general or use_stop:
         carry, acc_gx = carry[:-1], carry[-1]
@@ -106,37 +125,41 @@ def compose_macro(adam: AdamGroups, V_accum: int, use_stop: bool,
         params, opt_state, hist8, stopped = carry
         stop_now, m_star, hist8_new = stop_offset(hist8, losses_v, REPEAT_TOL)
         # after a stop the reference leaves its loop: the history freezes
-        hist8 = torch.where(stopped, hist8, hist8_new)
+        hist8 = torch.where(stopped[..., None], hist8, hist8_new)
     else:
         params, opt_state, stopped = carry
-        stop_now = torch.zeros((), dtype=torch.bool, device=losses_v.device)
-        m_star = torch.full((), V_accum, dtype=torch.int64,
-                            device=losses_v.device)
+        stop_now = torch.zeros(lead, dtype=torch.bool, device=dev)
+        m_star = torch.full(lead, V_accum, dtype=torch.int64, device=dev)
     if general:
         acc_gx = _last_visit_rows(acc_gx, grads_v.xyz, idxs, m_star)
-        g_xyz = torch.mean(acc_gx, dim=0)
+        g_xyz = torch.mean(acc_gx, dim=-3)
     elif use_stop:
-        row_new = torch.arange(V_accum, device=m_star.device)[:, None, None] < m_star
+        row_new = (torch.arange(V_accum, device=dev)[:, None, None]
+                   < m_star[..., None, None, None])
         acc_gx = torch.where(row_new, grads_v.xyz, acc_gx)
-        g_xyz = torch.mean(acc_gx, dim=0)
+        g_xyz = torch.mean(acc_gx, dim=-3)
     else:
-        g_xyz = torch.mean(grads_v.xyz, dim=0)
+        g_xyz = torch.mean(grads_v.xyz, dim=-3)
     # the last visited view (A−1 without a stop), as an index tensor: a
     # Python int would wait for the device
-    oidx = (m_star - 1).reshape(1)
+    oidx = (m_star - 1).reshape(lead + (1, 1, 1))
     grads = GaussianParams(g_xyz, *(
-        torch.index_select(g, 0, oidx)[0]
+        torch.take_along_dim(g, oidx, dim=len(lead)).squeeze(len(lead))
         for g in (grads_v.log_scales, grads_v.quats, grads_v.opacity_logit)))
     iteration = k * V_accum + m_star
 
     new_params, new_opt = adam.step(params, grads, opt_state, iteration,
                                     spatial_lr_scale)
     apply = torch.logical_not(stopped)
-    params2 = new_params.map(lambda a, b: torch.where(apply, a, b), params)
+    apply_f = apply[..., None, None]   # against (…,N,·) fields
+
+    def keep(a, b):
+        return torch.where(apply_f, a, b)
+
+    params2 = new_params.map(keep, params)
     opt2 = dataclasses.replace(
-        new_opt,
-        m=new_opt.m.map(lambda a, b: torch.where(apply, a, b), opt_state.m),
-        v=new_opt.v.map(lambda a, b: torch.where(apply, a, b), opt_state.v),
+        new_opt, m=new_opt.m.map(keep, opt_state.m),
+        v=new_opt.v.map(keep, opt_state.v),
         t=torch.where(apply, new_opt.t, opt_state.t))
     stopped2 = stopped | (stop_now & apply)
 
@@ -157,16 +180,18 @@ def compose_macro(adam: AdamGroups, V_accum: int, use_stop: bool,
 def init_macro_carry(params, opt_state, nviews: int, use_stop: bool,
                      general: bool, hist8_init=None):
     """The carry matching compose_macro's layout (accumulated_grads starts
-    at zero and persists across macro steps). With ``use_stop``,
-    ``hist8_init`` (a tensor: the previous scene's ``MacroHistory.hist8``)
-    seeds the early-stop window, which starts at +inf otherwise."""
+    at zero and persists across macro steps), with the scene axes of
+    ``params``. With ``use_stop``, ``hist8_init`` (a tensor: the previous
+    scene's ``MacroHistory.hist8``) seeds the early-stop window, which
+    starts at +inf otherwise."""
     dev = params.xyz.device
-    acc0 = ((torch.zeros((nviews,) + tuple(params.xyz.shape),
+    lead = tuple(params.xyz.shape[:-2])
+    acc0 = ((torch.zeros(lead + (nviews,) + tuple(params.xyz.shape[-2:]),
                          dtype=torch.float32, device=dev),)
             if (general or use_stop) else ())
-    stopped = torch.zeros((), dtype=torch.bool, device=dev)
+    stopped = torch.zeros(lead, dtype=torch.bool, device=dev)
     if use_stop:
-        hist8 = (torch.full((8,), float("inf"), dtype=torch.float32,
+        hist8 = (torch.full(lead + (8,), float("inf"), dtype=torch.float32,
                             device=dev) if hist8_init is None
                  else hist8_init.to(dev, torch.float32))
         return (params, opt_state, hist8, stopped) + acc0
@@ -198,7 +223,8 @@ class TrainSettings:
 
 @dataclasses.dataclass(frozen=True)
 class MacroHistory:
-    """Per-macro-step telemetry, on the device."""
+    """Per-macro-step telemetry, on the device (a batch of scenes adds a
+    leading B to every field)."""
 
     losses: torch.Tensor      # (K, A) per-visit total losses
     error: torch.Tensor       # (K, N) per-joint absolute error ‖pred−gt‖
@@ -282,16 +308,42 @@ class SceneTrainer:
             view_aux = spec
         return params, view_aux
 
+    def _prepare_batch(self, initial_b, poses_2d_b, cameras_b, drop_b):
+        """``_prepare`` of each scene (its parameters and its GT state from
+        its own initial covariance), once per batch: parameters stacked
+        (B,N,·), view aux concatenated over the B·V views (scene b's view
+        v at b·V + v)."""
+        per = [self._prepare(initial_b[b], poses_2d_b[b], cameras_b.take(b),
+                             drop_b[b]) for b in range(len(initial_b))]
+        params = per[0][0].map(lambda *xs: torch.stack(xs),
+                               *(p for p, _ in per[1:]))
+        auxes = [a for _, a in per]
+        if isinstance(auxes[0], torch.Tensor):    # dense GT heatmaps
+            return params, torch.cat(auxes)
+        return params, type(auxes[0])(*map(torch.cat, zip(*auxes)))
+
     def _per_view_grads(self, params, cameras, view_aux, poses_2d, A):
-        """(losses (A,), grads with a leading A axis) of the visited views:
-        one batched forward with per-view parameter copies, one backward."""
-        p = params.map(lambda x: x.detach().unsqueeze(0).expand(
-            (A,) + tuple(x.shape)).clone().requires_grad_(True))
+        """(losses (…,A), grads (…,A,N,·)) of the visited views of a scene,
+        or of a batch of scenes (``params`` with leading scene axes;
+        ``cameras``, ``view_aux`` and ``poses_2d`` then hold each scene's A
+        visited views, one scene after another): one forward over every
+        visited view with per-view parameter copies, one backward."""
+        lead = tuple(params.xyz.shape[:-2])
+
+        def copies(x):
+            own = tuple(x.shape[len(lead):])
+            return (x.detach().unsqueeze(len(lead))
+                    .expand(lead + (A,) + own).clone()
+                    .reshape((-1,) + own).requires_grad_(True))
+
+        p = params.map(copies)
         with torch.enable_grad():
             losses = self._view_loss(p, cameras, view_aux, poses_2d)
             grads = torch.autograd.grad(
                 losses.sum(), [p.xyz, p.log_scales, p.quats, p.opacity_logit])
-        return losses.detach(), GaussianParams(*grads)
+        return (losses.detach().reshape(lead + (A,)),
+                GaussianParams(*(g.reshape(lead + (A,) + tuple(g.shape[1:]))
+                                 for g in grads)))
 
     def host_inputs(self, initial_pose, poses_2d, cameras: Camera,
                     pose_3d_gt=None, drop_mask=None):
@@ -348,13 +400,67 @@ class SceneTrainer:
         cameras = cameras.map(lambda x: x.to(dev))
         poses_2d, pose_3d_gt, drop_mask = (
             torch.as_tensor(a, device=dev) for a in (p2d_np, gt_np, drop_np))
-
-        A = self.settings.accumulation_steps
-        nviews = poses_2d.shape[0]
-        general = A != nviews
-        use_stop = self.settings.early_stopping == "opt_early_stopping"
         params, view_aux = self._prepare(init_np, poses_2d, cameras,
                                          drop_mask)
+        return self._run(params, view_aux, cameras, poses_2d, pose_3d_gt,
+                         extent, checkpoint_iterations, checkpoint_fn,
+                         hist8_init, lean)
+
+    def optimize_scene_batch(self, initial_b, poses_2d_b, cameras_b: Camera,
+                             pose_3d_gt_b=None, lean: bool = False):
+        """Run B independent scenes of this trainer's (W, H) and one view
+        count at once: every macro step is one preprocess, one kernel launch
+        and one backward over the B·A visited views, and each scene
+        composes its gradients, steps Adam (with its own extent as the xyz
+        LR scale) and, under early stopping, stops and freezes on its own
+        8-loss window, which starts at +inf. Per scene the results are
+        those of ``optimize_scene`` without checkpoints, noise or dropout
+        (the batched sweep's conditions).
+
+        initial_b (B,N,3), poses_2d_b (B,V,N,2+), pose_3d_gt_b (B,N,3)
+        (zeros if absent): numpy or host tensors; cameras_b a Camera with
+        leading (B, V) axes (``stack_cameras`` of the scenes' Cameras),
+        ideally on the CPU: the extents come from its camera centres on the
+        host. Returns (params with leading B, MacroHistory with losses
+        (B,K,A), error/error_rel (B,K,N), stopped_at (B,)), on the device;
+        ``lean`` keeps only the last telemetry row (K=1).
+        """
+        dev = self.device
+        initial_b = np.asarray(initial_b, dtype=np.float32)
+        poses_2d_b = np.ascontiguousarray(np.asarray(poses_2d_b)[..., :2],
+                                          dtype=np.float32)
+        B, nviews, n = poses_2d_b.shape[:3]
+        pose_3d_gt_b = (np.zeros_like(initial_b) if pose_3d_gt_b is None
+                        else np.asarray(pose_3d_gt_b, dtype=np.float32))
+        centers = cameras_b.cam_center.detach().cpu().numpy()
+        extent = torch.as_tensor(
+            np.asarray([extent_from_centers(c) for c in centers], np.float32),
+            device=dev)
+        cameras_b = cameras_b.map(lambda x: x.to(dev))
+        poses_2d_b, pose_3d_gt_b = (torch.as_tensor(a, device=dev)
+                                    for a in (poses_2d_b, pose_3d_gt_b))
+        drop_b = torch.zeros((B, nviews, n), dtype=torch.bool, device=dev)
+        params, view_aux = self._prepare_batch(initial_b, poses_2d_b,
+                                               cameras_b, drop_b)
+        return self._run(params, view_aux, flatten_scenes(cameras_b),
+                         poses_2d_b.reshape((B * nviews,) + (n, 2)),
+                         pose_3d_gt_b, extent, lean=lean)
+
+    def _run(self, params, view_aux, cameras, poses_2d, pose_3d_gt, extent,
+             checkpoint_iterations=(), checkpoint_fn=None, hist8_init=None,
+             lean: bool = False):
+        """The macro loop over prepared state, for one scene or a batch:
+        ``params``, ``pose_3d_gt`` and ``extent`` carry the scene axes (none
+        for one scene, (B,) for a batch), while ``cameras``, ``view_aux``
+        and ``poses_2d`` hold every scene's V views one scene after
+        another."""
+        dev = self.device
+        lead = tuple(params.xyz.shape[:-2])
+        n_scenes = int(np.prod(lead, dtype=np.int64))
+        A = self.settings.accumulation_steps
+        nviews = poses_2d.shape[0] // n_scenes
+        general = A != nviews
+        use_stop = self.settings.early_stopping == "opt_early_stopping"
         carry = init_macro_carry(params, self.adam.init(params), nviews,
                                  use_stop, general, hist8_init)
 
@@ -362,43 +468,49 @@ class SceneTrainer:
         saves = {min(max(it // A, 0), K) for it in checkpoint_iterations}
         saves.discard(0)
         ks = torch.arange(K, dtype=torch.int64, device=dev)
-        # the reference visits views (k·A + j) mod V during macro step k
+        # the reference visits views (k·A + j) mod V during macro step k, in
+        # every scene; flat_all[k] indexes them in the scenes' flat views
         idx_all = (ks[:, None] * A + torch.arange(A, device=dev)) % nviews
+        flat_all = (torch.arange(n_scenes, device=dev)[None, :, None] * nviews
+                    + idx_all[:, None, :]).reshape(K, n_scenes * A)
         rows = 1 if lean else K
-        losses_h = torch.zeros((rows, A), dtype=torch.float32, device=dev)
-        stop_max = torch.zeros((), dtype=torch.int64, device=dev)
+        losses_h = torch.zeros(lead + (rows, A), dtype=torch.float32,
+                               device=dev)
+        stop_max = torch.zeros(lead, dtype=torch.int64, device=dev)
         err_h = err_rel_h = None
         if not lean:
-            n = poses_2d.shape[1]
-            err_h = torch.zeros((K, n), dtype=torch.float32, device=dev)
-            err_rel_h = torch.zeros((K, n), dtype=torch.float32, device=dev)
+            n = params.xyz.shape[-2]
+            err_h = torch.zeros(lead + (K, n), dtype=torch.float32,
+                                device=dev)
+            err_rel_h = torch.zeros(lead + (K, n), dtype=torch.float32,
+                                    device=dev)
 
         for k in range(K):
-            idxs = idx_all[k]
             if general:
-                cams_k = cameras.take(idxs)
-                aux_k = (view_aux[idxs] if self.renderer == "dense"
-                         else view_aux.take(idxs))
-                p2d_k = poses_2d[idxs]
+                flat = flat_all[k]
+                cams_k = cameras.take(flat)
+                aux_k = (view_aux[flat] if self.renderer == "dense"
+                         else view_aux.take(flat))
+                p2d_k = poses_2d[flat]
             else:
                 cams_k, aux_k, p2d_k = cameras, view_aux, poses_2d
             losses_v, grads_v = self._per_view_grads(
                 carry[0], cams_k, aux_k, p2d_k, A)
             carry, rec = compose_macro(
                 self.adam, A, use_stop, general, carry, ks[k], losses_v,
-                grads_v, idxs, pose_3d_gt, extent, lean=lean)
-            losses_h[0 if lean else k] = rec[0]
+                grads_v, idx_all[k], pose_3d_gt, extent, lean=lean)
+            losses_h[..., 0 if lean else k, :] = rec[0]
             stop_max = torch.maximum(stop_max, rec[-1])
             if not lean:
-                err_h[k] = rec[1]
-                err_rel_h[k] = rec[2]
+                err_h[..., k, :] = rec[1]
+                err_rel_h[..., k, :] = rec[2]
             if checkpoint_fn is not None and k + 1 in saves:
                 checkpoint_fn((k + 1) * A, carry[0])
 
         params = carry[0]
         if lean:
             err, err_rel = _telemetry_norms(params.xyz, pose_3d_gt)
-            err_h, err_rel_h = err[None], err_rel[None]
+            err_h, err_rel_h = err.unsqueeze(-2), err_rel.unsqueeze(-2)
         return params, MacroHistory(
             losses=losses_h, error=err_h, error_rel=err_rel_h,
             stopped_at=stop_max, hist8=carry[2] if use_stop else None)

@@ -11,17 +11,19 @@ from skelsplat_tpu_torch.core.cameras import FIELDS, camera_arrays
 
 
 def synthetic_inputs(n_scenes: int, width: int, height: int, n_views: int = 4,
-                     n_joints: int = 17, seed: int = 0, widths=None):
+                     n_joints: int = 17, seed: int = 0, widths=None,
+                     ring: float = 4200.0):
     """(init (S,N,3), gt (S,N,3), p2d (S,V,N,2), cameras) with ``cameras`` a
     dict of stacked numpy Camera fields (leading axis V). ``widths``
     optionally gives each view its own true image width (H36M mixes 1000-
-    and 1002-wide cameras); ``width`` is then the grid width, their max."""
+    and 1002-wide cameras); ``width`` is then the grid width, their max.
+    ``ring`` is the cameras' distance (mm) from the volume's axis."""
     rng = np.random.default_rng(seed)
     widths = [width] * n_views if widths is None else list(widths)
     cams = []
     for v in range(n_views):
         th = 2 * np.pi * v / n_views + 0.4
-        pos = np.array([4200 * np.cos(th), 4200 * np.sin(th), 1100.0])
+        pos = np.array([ring * np.cos(th), ring * np.sin(th), 1100.0])
         z = np.array([0, 0, 900.0]) - pos
         z /= np.linalg.norm(z)
         up = np.array([0.0, 0.0, -1.0])

@@ -45,13 +45,14 @@ W, H, N_JOINTS, N_VIEWS = 1002, 1000, 17, 4
 def probe_inputs(width: int = W, height: int = H, n_joints: int = N_JOINTS,
                  n_views: int = N_VIEWS, seed: int = 0, device="cuda",
                  widths=None, behind_camera: bool = False,
-                 perturb: bool = False):
+                 perturb: bool = False, ring: float = 4200.0):
     """(pack (V,N,16), p1 (V,N,H), p2 (V,N,W), img (V,2)) of frame 0 of the
     synthetic scenes from ``seed`` at its initial parameters, depth-sorted
     and packed as ``fused_view_loss_cuda`` packs them for K1. ``widths``
     gives each view its true image width (``width`` is the grid's);
     ``behind_camera`` moves joint 4 behind camera 0, which culls it there;
-    ``perturb`` draws anisotropic scales and rotations from ``seed`` + 1."""
+    ``perturb`` draws anisotropic scales and rotations from ``seed`` + 1;
+    ``ring`` is the rig's camera distance (``synthetic_inputs``)."""
     from skelsplat_tpu_torch import compat
     from skelsplat_tpu_torch.core.gaussians import init_params
     from skelsplat_tpu_torch.ops import heatmaps, rasterizer
@@ -61,7 +62,7 @@ def probe_inputs(width: int = W, height: int = H, n_joints: int = N_JOINTS,
     init, _, p2d, cams_np = synthetic_inputs(1, width, height,
                                              n_views=n_views,
                                              n_joints=n_joints, seed=seed,
-                                             widths=widths)
+                                             widths=widths, ring=ring)
     pose = init[0].copy()
     if behind_camera:
         c = cams_np["cam_center"][0].astype(np.float64)
@@ -93,6 +94,18 @@ def probe_inputs(width: int = W, height: int = H, n_joints: int = N_JOINTS,
         gd, aux, p1s, p2s = cr.slot_pack(pp, prof)
         pack = torch.cat([gd, aux], dim=-1).contiguous()
     return pack, p1s, p2s, prof.img
+
+
+def probe_inputs_batch(n_scenes: int, width: int = W, height: int = H,
+                       device="cuda", widths=None, perturb: bool = False):
+    """K1's inputs for a macro step of a batch of ``n_scenes`` scenes, as
+    the batched trainer gives them: every scene's views one scene after
+    another (V = n_scenes · 4). Scene s is ``probe_inputs`` of seed s seen
+    by its own rig, at 3800 + 100·s mm."""
+    parts = [probe_inputs(width, height, seed=s, device=device,
+                          widths=widths, perturb=perturb,
+                          ring=3800.0 + 100.0 * s) for s in range(n_scenes)]
+    return tuple(torch.cat(xs).contiguous() for xs in zip(*parts))
 
 
 def keep_slots(pack, p1s, n: int, views=slice(None)):

@@ -32,6 +32,17 @@ ITERS = (12, 24)
 ROTATION_LR = 0.001   # h36m.yaml's optimization.rotation_lr
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Run the port's many small CPU ops on one torch thread: under the
+    test run's parallel workers, an intra-op thread per core in every
+    worker contends for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def tree(tmp_path_factory):
     root = tmp_path_factory.mktemp("data") / "synth-h36m"
@@ -197,15 +208,12 @@ def test_early_stopped_scenes_save_under_their_stop_iteration(tree,
 
 
 @pytest.mark.parametrize("override", [
-    "training.scene_batch=2", "+training.multichip=true",
+    "+training.multichip=true",
     "+training.view_fusion=confidence_weighted", "training.loss_function=l1",
     "pipeline.debug=true", "eval.image_metrics=true"])
 def test_unported_options_raise(tree, tmp_path, override):
     args = ["--config-name", "h36m.yaml", "--device", "cpu",
             *_overrides(tree, str(tmp_path / "run")), override]
-    if "scene_batch" in override:
-        # the JAX driver batches only without mid-run checkpoints
-        args.append(f"debug.save_iterations=[{ITERS[-1]}]")
     main = teval_cli.main if override.startswith("eval.") else ttrain_cli.main
     with pytest.raises(SystemExit, match="ROADMAP"):
         main(args)

@@ -24,18 +24,24 @@ def card():
                     "plain versions, which tests/test_torch_raster.py checks")
 
 
-# (joints, view with no live tile)
-CASES = {"n17": (17, None), "n15": (15, None), "n19": (19, None),
-         "dead_view": (17, 1)}
+WIDTHS = (240, 238, 240, 236)
+# (joints, view with no live tile, scenes: a batch of 8 gives V = 32)
+CASES = {"n17": (17, None, 1), "n15": (15, None, 1), "n19": (19, None, 1),
+         "dead_view": (17, 1, 1), "batch_v32": (17, None, 8)}
 
 
 @pytest.fixture(params=list(CASES))
 def packed(card, request):
     from skelsplat_tpu_torch.tools import kernel_probe
 
-    n, dead = CASES[request.param]
-    pack, p1s, p2s, img = kernel_probe.probe_inputs(
-        W, H, n_joints=n, widths=(240, 238, 240, 236), device="cuda")
+    n, dead, scenes = CASES[request.param]
+    if scenes > 1:
+        pack, p1s, p2s, img = kernel_probe.probe_inputs_batch(
+            scenes, W, H, widths=WIDTHS, perturb=True, device="cuda")
+        assert pack.shape[0] == 4 * scenes
+    else:
+        pack, p1s, p2s, img = kernel_probe.probe_inputs(
+            W, H, n_joints=n, widths=WIDTHS, device="cuda")
     if dead is not None:
         pack, p1s = kernel_probe.keep_slots(pack, p1s, 0, views=[dead])
     return pack, p1s, p2s, img, dead
@@ -103,29 +109,31 @@ def test_calls_on_two_streams_overlap_safely(card):
             assert all(torch.equal(a, b) for a, b in zip(out, alone[k])), k
 
 
+def _count_syncs(fn):
+    """The synchronizing CUDA calls ``fn`` makes, by torch's detector."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
 @pytest.mark.cuda
 def test_macro_steps_make_no_host_sync(card):
     """The host waits on the device only in a scene's set-up and for its
     results: the count of synchronizing calls is the same for 2 and for 10
     macro steps."""
-    import warnings
-
     from skelsplat_tpu_torch.core.gaussians import SkeletonModel
     from skelsplat_tpu_torch.engine.optim import OptConfig
     from skelsplat_tpu_torch.engine.trainer import SceneTrainer, TrainSettings
 
-    def count_syncs(fn):
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                fn()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        return sum("synchroniz" in str(w.message) for w in caught)
-
     # the detector sees a sync where there is one
-    assert count_syncs(lambda: torch.ones(1, device="cuda").item()) >= 1
+    assert _count_syncs(lambda: torch.ones(1, device="cuda").item()) >= 1
 
     init, gt, p2d, cams_np = synthetic_inputs(1, W, H)
     cams = compat.camera_from_numpy(cams_np, device="cuda")
@@ -135,9 +143,63 @@ def test_macro_steps_make_no_host_sync(card):
                                TrainSettings(), W, H, renderer="cuda")
         trainer.optimize_scene(init[0], p2d[0], cams, gt[0])   # warm-up
         torch.cuda.synchronize()
-        syncs[iters] = count_syncs(lambda: trainer.optimize_scene(
+        syncs[iters] = _count_syncs(lambda: trainer.optimize_scene(
             init[0], p2d[0], cams, gt[0]))
     assert syncs[8] == syncs[40], syncs
+
+
+@pytest.mark.cuda
+def test_batched_macro_steps_make_no_host_sync(card):
+    """optimize_scene_batch over 3 scenes waits on the device as often for
+    2 macro steps as for 10: only in the batch's set-up and for its
+    results."""
+    from skelsplat_tpu_torch.core.cameras import stack_cameras
+    from skelsplat_tpu_torch.core.gaussians import SkeletonModel
+    from skelsplat_tpu_torch.engine.optim import OptConfig
+    from skelsplat_tpu_torch.engine.trainer import SceneTrainer, TrainSettings
+
+    init, gt, p2d, cams_np = synthetic_inputs(3, W, H)
+    cams = compat.camera_from_numpy(cams_np, device="cpu")
+    cams_b = stack_cameras([cams] * 3)
+    syncs = {}
+    for iters in (8, 40):
+        trainer = SceneTrainer(SkeletonModel("h36m", 17), OptConfig(iters),
+                               TrainSettings(), W, H, renderer="cuda")
+        trainer.optimize_scene_batch(init, p2d, cams_b, gt)   # warm-up
+        torch.cuda.synchronize()
+        syncs[iters] = _count_syncs(lambda: trainer.optimize_scene_batch(
+            init, p2d, cams_b, gt))
+    assert syncs[8] == syncs[40], syncs
+
+
+@pytest.mark.cuda
+def test_result_copy_returns_batch_k_while_batch_k1_runs(card):
+    """The batched sweep's result copy of batch k (``engine/driver.py``'s
+    ``_Fetch``: one non-blocking copy into pinned memory and an event
+    behind it) returns batch k's values while ~1 s of batch k+1's work,
+    enqueued after it on the same stream, still runs, and before batch
+    k+1 changes the tensors; a blocking copy would wait for batch k+1."""
+    import time
+
+    from skelsplat_tpu_torch.engine.driver import _Fetch
+
+    x = torch.arange(4096, dtype=torch.float32, device="cuda")
+    stop = torch.full((3,), 8, dtype=torch.int64, device="cuda")
+    torch.cuda.synchronize()
+    fetch = _Fetch([x * 2, stop])
+    torch.cuda._sleep(2_000_000_000)     # batch k+1: ~1 s of device time
+    x.add_(1.0)
+    stop.zero_()
+    t0 = time.perf_counter()
+    got = fetch.result()
+    waited = time.perf_counter() - t0
+    still_running = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    assert still_running, "batch k+1 ended before batch k's copy was read"
+    assert waited < 0.5, waited
+    np.testing.assert_array_equal(got[0], 2 * np.arange(4096, dtype=np.float32))
+    np.testing.assert_array_equal(got[1], np.full(3, 8.0, np.float32))
+    assert got[1].shape == (3,)
 
 
 @pytest.mark.cuda

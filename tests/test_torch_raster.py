@@ -37,6 +37,17 @@ def _torch_params(p, requires_grad=False):
     return tp
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Run the port's many small CPU ops on one torch thread: under the
+    test run's parallel workers, an intra-op thread per core in every
+    worker contends for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def scene():
     cams, _, _ = synthetic_rig(n_views=NV, width=W, height=H)
