@@ -81,11 +81,34 @@ Phases, each failing the script (nonzero exit) on any error:
              SceneTrainer.optimize_scene_batch (s/scene of a full batch,
              through a host copy of xyz).
 
+8. options — the training options and entry points beyond H36M's
+             defaults, each counted around its own call: (a) a Panoptic
+             sweep (panoptic.yaml, 19 joints, 4 views at 1920x1080, 500
+             iterations, DATASET_SCENES scenes of a synthetic tree) and
+             (b) an Occlusion-Person sweep (occlusion-person.yaml, 15
+             joints, 1280x720, scaling_modifier 1.25), each exactly 125
+             K1 launches a scene and an MPJPE below the initial guesses',
+             with K1 held against its plain version and timed at the
+             sweep's (N, W, H); (c) one H36M scene at 1002/1000x1000 with
+             the soft-argmax loss l1_masked_huber, which renderer "auto"
+             sends through the dense renderer: 0 K1 launches, its peak
+             device memory and s/scene, and each view's loss and xyz
+             gradient at the initial parameters against the same call on
+             the CPU; (d) one H36M scene with
+             view_fusion=confidence_weighted through K1 (125 launches);
+             (e) the triangulation entry point over (a)'s tree on the card
+             against the same on the CPU; (f) the render entry point over
+             (a)'s run: 4 PNGs a scene.
+
 The line before the last is {"kernels": [...], "off_path_kernels": [...]}:
 "kernels" lists the kernels the paths launched (K1 on the frame, with
 its launches on the CLI sweep as "launches_cli", on the batched sweep as
 "launches_batch" and its time, plain time and bounds on a batch's 32
-views as "*_v32"; K3 on the measurement path), "off_path_kernels" those
+views as "*_v32"; on phase 8's Panoptic, Occlusion-Person and fusion runs
+as "launches_panoptic", "launches_occlusion_person" and
+"launches_fusion", and its time, plain time and bounds at Panoptic's and
+Occlusion-Person's shapes as "*_panoptic" and "*_occlusion_person"; K3 on
+the measurement path), "off_path_kernels" those
 the port holds that no path launches (K2, launches 0); the last line is
 {"ok": true, "device": {...}}. ``--profile`` adds a torch.profiler pass
 over one frame and over one batch of 8 frames (device time by kernel,
@@ -123,6 +146,19 @@ BATCH_DIR = SMOKE_DIR / "batch"
 # per-scene logged error and absolute MPJPE, batched sweep against serial:
 # a tenth of the port's 0.5 mm end-check bar
 BATCH_ATOL_MM = 0.05
+OPTION_DIR = SMOKE_DIR / "options"
+DATASET_SCENES = 2
+# phase 8's dataset sweeps: (config, (width, height), joints)
+DATASETS = (("panoptic", (1920, 1080), 19),
+            ("occlusion-person", (1280, 720), 15))
+SOFTARGMAX_LOSS = "l1_masked_huber"
+# card against CPU, dense soft-argmax path: each view's xyz gradient
+# relative to its largest |component|. The two devices' expf round
+# differently in the last place at some pixels, and the soft-argmax's
+# beta = 100 multiplies that into the gradient: 100x the renderers' 1e-6
+# (on the CPU, the port against JAX's op-by-op dense path: 4.1e-5)
+DENSE_GRAD_RTOL = 1e-4
+TRI_REL = 1e-9
 # dg tolerance relative to the largest |dg| of the same view and gradient
 # component (px, py, a, b, c or opa) over the slots: both sides sum ~1e5
 # per-pixel f32 terms, the kernel by warp/tile trees and the plain version
@@ -608,9 +644,7 @@ def phase_cli():
     import shutil
 
     from skelsplat_tpu_torch import eval as eval_cli
-    from skelsplat_tpu_torch import train as train_cli
     from skelsplat_tpu_torch.data.loader import DataLoader
-    from skelsplat_tpu_torch.ops import cuda_raster as cr
     from skelsplat_tpu_torch.tools import make_synthetic_dataset
 
     shutil.rmtree(SMOKE_DIR, ignore_errors=True)
@@ -623,20 +657,10 @@ def phase_cli():
                  f"dataset.end_scene_id={CLI_SCENES}"]
     loader = DataLoader(str(root), str(root / "initial_guess" / "metrabs"),
                         str(root / "2d_metrabs"), end_id=CLI_SCENES)
-    init_mpjpe = float(np.mean([
-        np.linalg.norm(r.pose_3d - r.pose_3d_gt, axis=1).mean()
-        for _, r in loader]))
+    init_mpjpe = _initial_mpjpe(loader)
 
-    stdout = sys.stdout   # train.main's safe_state replaces it
-    for k in cr.launches:
-        cr.launches[k] = 0
-    try:
-        results = train_cli.main(["--config-name", "h36m.yaml", *overrides,
-                                  f"hydra.run.dir={run_dir}"])
-        torch.cuda.synchronize()
-    finally:
-        sys.stdout = stdout
-    counts = dict(cr.launches)
+    results, counts = _train(["--config-name", "h36m.yaml", *overrides,
+                              f"hydra.run.dir={run_dir}"])
     print(f"  train.main: {len(results)} scenes, launches {counts}",
           flush=True)
     assert counts == {"raster_loss_grad": CLI_SCENES * ITERATIONS // 4,
@@ -679,11 +703,9 @@ def phase_batch(card: str, profile: bool):
 
     from skelsplat_tpu_torch import compat
     from skelsplat_tpu_torch import eval as eval_cli
-    from skelsplat_tpu_torch import train as train_cli
     from skelsplat_tpu_torch.core.cameras import stack_cameras
     from skelsplat_tpu_torch.data import ply
     from skelsplat_tpu_torch.data.loader import DataLoader
-    from skelsplat_tpu_torch.ops import cuda_raster as cr
     from skelsplat_tpu_torch.synthetic import synthetic_inputs
     from skelsplat_tpu_torch.tools import make_synthetic_dataset
 
@@ -696,25 +718,15 @@ def phase_batch(card: str, profile: bool):
                  f"dataset.end_scene_id={BATCH_SCENES}"]
     loader = DataLoader(str(root), str(root / "initial_guess" / "metrabs"),
                         str(root / "2d_metrabs"), end_id=BATCH_SCENES)
-    init_mpjpe = float(np.mean([
-        np.linalg.norm(r.pose_3d - r.pose_3d_gt, axis=1).mean()
-        for _, r in loader]))
+    init_mpjpe = _initial_mpjpe(loader)
 
     runs = {}
     for batch in (1, SCENE_BATCH):
         run_dir = BATCH_DIR / f"run_b{batch}"
-        stdout = sys.stdout   # train.main's safe_state replaces it
-        for k in cr.launches:
-            cr.launches[k] = 0
-        try:
-            results = train_cli.main([
-                "--config-name", "h36m.yaml", *overrides,
-                "debug.save_images=false", f"training.scene_batch={batch}",
-                f"hydra.run.dir={run_dir}"])
-            torch.cuda.synchronize()
-        finally:
-            sys.stdout = stdout
-        counts = dict(cr.launches)
+        results, counts = _train([
+            "--config-name", "h36m.yaml", *overrides,
+            "debug.save_images=false", f"training.scene_batch={batch}",
+            f"hydra.run.dir={run_dir}"])
         groups = math.ceil(BATCH_SCENES / batch)
         print(f"  train.main, scene_batch={batch}: {len(results)} scenes, "
               f"launches {counts} ({groups} groups)", flush=True)
@@ -787,6 +799,279 @@ def phase_batch(card: str, profile: bool):
     return counts, serial, batched
 
 
+def _train(args):
+    """train.main in-process, with the launch counts set to 0 just before
+    and read just after. Returns (summary dicts, counts)."""
+    from skelsplat_tpu_torch import train as train_cli
+    from skelsplat_tpu_torch.ops import cuda_raster as cr
+
+    stdout = sys.stdout   # train.main's safe_state replaces it
+    for k in cr.launches:
+        cr.launches[k] = 0
+    try:
+        results = train_cli.main(args)
+        torch.cuda.synchronize()
+    finally:
+        sys.stdout = stdout
+    return results, dict(cr.launches)
+
+
+def _initial_mpjpe(loader) -> float:
+    return float(np.mean([
+        np.linalg.norm(r.pose_3d - r.pose_3d_gt, axis=1).mean()
+        for _, r in loader]))
+
+
+def _loader(cfg, end_id: int):
+    import os
+
+    from skelsplat_tpu_torch.data.loader import DataLoader
+
+    d = cfg.dataset
+    return DataLoader(d.data_root, os.path.join(d.data_root, "initial_guess",
+                                                d.initial_guess),
+                      os.path.join(d.data_root, "2d_" + d.poses_2d),
+                      frame_step=d.frame_step, end_id=end_id,
+                      nviews=d.nviews)
+
+
+def check_k1_at(name, width: int, height: int, n_joints: int):
+    """K1 against its plain version on the card at a sweep's (N, W, H), and
+    its time, plain time and bound there. Returns the K1 row's fields for
+    ``name`` and the largest |difference|."""
+    from skelsplat_tpu_torch.ops import cuda_raster as cr
+    from skelsplat_tpu_torch.tools import kernel_probe
+    from skelsplat_tpu_torch.tools.roofline import kernel_bound
+    from skelsplat_tpu_torch.tools.timing import cuda_ms
+
+    x = kernel_probe.probe_inputs(width, height, n_joints=n_joints,
+                                  n_views=N_VIEWS, device="cuda",
+                                  perturb=True)
+    S, C, dg, live = cr.raster_loss_grad(*x, False, return_live=True)
+    Sp, Cp, dgp = cr.raster_loss_grad_plain(*x, False)
+    torch.cuda.synchronize()
+    check_live_list(f"K1 at {name}", live, cr.live_tiles_plain(x[0], height,
+                                                               width))
+    assert torch.equal(C, Cp) and bool((C > 0).all()), (C, Cp)
+    torch.testing.assert_close(S, Sp, rtol=1e-5, atol=0)
+    rel = dg_rel_err(dg, dgp)
+    assert float(rel.max()) <= DG_RTOL, (name, rel.tolist())
+    ms, stream_ms = cuda_ms(lambda: cr.raster_loss_grad(*x, False), reps=200,
+                            each_kernel_once=True)
+    plain_ms, _ = cuda_ms(lambda: cr.raster_loss_grad_plain(*x, False),
+                          reps=2, warmup=1)
+    b_ms, b_by = kernel_bound(*x, True)["published"]
+    err = max(float((dg - dgp).abs().max()), float((S - Sp).abs().max()))
+    print(f"  K1 at {name} ({N_VIEWS} views, {n_joints} joints, "
+          f"{width}x{height}): C exact, dg rel err per component "
+          f"{[float(f'{r:.3g}') for r in rel.tolist()]}; {ms:.4f} ms/call "
+          f"device time ({stream_ms:.4f} back to back), plain {plain_ms:.2f} "
+          f"ms, bound {b_ms:.6f} ms by {b_by}", flush=True)
+    return {f"ms_{name}": ms, f"plain_ms_{name}": plain_ms,
+            f"bound_ms_{name}": b_ms, f"bound_by_{name}": b_by}, err
+
+
+def sweep_dataset(config: str, size, n_joints: int, card: str):
+    """Phase 8 (a)/(b): a synthetic tree of ``config``'s layout at its
+    cameras' own size, trained by train.main and scored by eval.main.
+    Returns (K1 launches, run dir, root, s/scene, MPJPE)."""
+    from skelsplat_tpu_torch import eval as eval_cli
+    from skelsplat_tpu_torch.config import load_config
+    from skelsplat_tpu_torch.data import cameras_io
+    from skelsplat_tpu_torch.tools import make_synthetic_dataset as synth
+
+    root = OPTION_DIR / f"synth-{config}"   # the loader dispatches on it
+    run_dir = OPTION_DIR / f"run-{config}"
+    if config == "panoptic":
+        n = synth.write_panoptic_tree(str(root), activities=("171204_pose5",),
+                                      frames=DATASET_SCENES, image_size=size)
+    else:
+        n = synth.write_occlusion_person_tree(str(root), frames=DATASET_SCENES,
+                                              image_size=size)
+    assert n == DATASET_SCENES, n
+    overrides = [f"dataset.data_root={root}",
+                 f"dataset.end_scene_id={DATASET_SCENES}"]
+    loader = _loader(load_config(f"{config}.yaml", overrides,
+                                 make_run_dir=False), DATASET_SCENES)
+    for _, rec in loader:
+        cams = cameras_io.build_camera_batch(rec.cameras, device="cpu")
+        assert rec.pose_3d.shape == (n_joints, 3), rec.pose_3d.shape
+        assert {int(w) for w in cams.width} == {size[0]} and \
+            {int(h) for h in cams.height} == {size[1]}, (cams.width,
+                                                         cams.height)
+    init_mpjpe = _initial_mpjpe(loader)
+    results, counts = _train(["--config-name", f"{config}.yaml", *overrides,
+                              f"hydra.run.dir={run_dir}"])
+    print(f"  train.main, {config}.yaml: {len(results)} scenes, launches "
+          f"{counts}", flush=True)
+    assert counts == {"raster_loss_grad": DATASET_SCENES * ITERATIONS // 4,
+                      "raster_loss": 0}, counts
+    missing = [r["scene_name"] for r in results if not (
+        run_dir / "point_cloud" / f"iteration_{ITERATIONS}"
+        / f"{r['scene_name']}.ply").is_file()]
+    assert len(results) == DATASET_SCENES and not missing, missing
+    summary = json.loads((run_dir / "train_summary.json").read_text())
+    res = eval_cli.main(["--config-name", f"{config}.yaml", *overrides,
+                         f"eval.output_path={run_dir}"])[ITERATIONS]
+    s_scene = summary["mean_seconds_per_scene"]
+    print(f"  {config}: absolute MPJPE {res['absolute']:.4f} mm, relative "
+          f"{res['relative']:.4f} mm; the initial guesses' {init_mpjpe:.4f} "
+          f"mm; {s_scene:.6f} s/scene (mean_seconds_per_scene; "
+          f"{DATASET_SCENES} scenes, {ITERATIONS} iterations, {N_VIEWS} views "
+          f"at {size[0]}x{size[1]}, {n_joints} joints) on {card}", flush=True)
+    assert np.isfinite(res["absolute"]) and np.isfinite(res["relative"])
+    assert res["absolute"] < init_mpjpe, (res, init_mpjpe)
+    return counts["raster_loss_grad"], run_dir, root, s_scene, res
+
+
+def dense_card_vs_cpu(root):
+    """Each view's dense soft-argmax loss and xyz gradient at the initial
+    parameters of the tree's first scene, on the card and on the CPU."""
+    from skelsplat_tpu_torch.config import load_config
+    from skelsplat_tpu_torch.core.gaussians import SkeletonModel
+    from skelsplat_tpu_torch.data import cameras_io
+    from skelsplat_tpu_torch.engine import driver
+    from skelsplat_tpu_torch.engine.trainer import SceneTrainer
+
+    cfg = load_config("h36m.yaml", [
+        f"dataset.data_root={root}",
+        f"training.loss_function={SOFTARGMAX_LOSS}"], make_run_dir=False)
+    _, rec = next(iter(_loader(cfg, 1)))
+    m = cfg.model
+    model = SkeletonModel("h36m", 17, scaling=float(m.scaling),
+                          scaling_modifier=float(m.scaling_modifier),
+                          opacity_on=bool(m.opacity_on))
+    cams = cameras_io.build_camera_batch(rec.cameras, device="cpu")
+    W_, H_ = int(cams.width.max()), int(cams.height.max())
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = SceneTrainer(model, driver.opt_config_from(cfg.optimization),
+                         driver.train_settings_from(cfg.training), W_, H_,
+                         device=dev)
+        assert t.renderer == "dense", t.renderer
+        init, p2d, _, drop, _ = t.host_inputs(rec.pose_3d, rec.poses_2d, cams)
+        c = cams.map(lambda x: x.to(dev))
+        p2d = torch.as_tensor(p2d, device=dev)
+        params, aux = t._prepare(init, p2d, c, torch.as_tensor(drop,
+                                                               device=dev))
+        losses, grads = t._per_view_grads(params, c, aux, p2d, N_VIEWS)
+        out[dev] = (losses.cpu(), grads.xyz.cpu())
+    (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+    loss_rel = float((lg / lc - 1).abs().max())
+    grad_rel = float(((gg - gc).abs().amax(dim=(1, 2))
+                      / gc.abs().amax(dim=(1, 2))).max())
+    print(f"  dense {SOFTARGMAX_LOSS} at the initial parameters, card vs "
+          f"CPU: per-view loss rel diff {loss_rel:.3g} (losses "
+          f"{lg.tolist()}), xyz gradient diff {grad_rel:.3g} of each view's "
+          f"largest |component|", flush=True)
+    assert loss_rel <= 1e-5, loss_rel
+    assert grad_rel <= DENSE_GRAD_RTOL, grad_rel
+    return loss_rel, grad_rel
+
+
+def phase_options(card: str):
+    """Phase 8. Returns the K1 row's new fields and the largest |K1 − plain|
+    of its checks."""
+    import shutil
+
+    from skelsplat_tpu_torch import eval as eval_cli
+    from skelsplat_tpu_torch import render as render_cli
+    from skelsplat_tpu_torch import triangulation as tri_cli
+    from skelsplat_tpu_torch.data import ply
+
+    shutil.rmtree(OPTION_DIR, ignore_errors=True)
+    row, err, runs = {}, 0.0, {}
+    for config, size, n_joints in DATASETS:
+        key = config.replace("-", "_")
+        launches, run_dir, root, _, _ = sweep_dataset(config, size, n_joints,
+                                                      card)
+        runs[config] = (run_dir, root)
+        row[f"launches_{key}"] = launches
+        fields, e = check_k1_at(key, *size, n_joints)
+        row.update(fields)
+        err = max(err, e)
+
+    # (c) the dense soft-argmax path, over phase 6's H36M tree
+    h36m = SMOKE_DIR / "synth-h36m"
+    one = [f"dataset.data_root={h36m}", "dataset.end_scene_id=1"]
+    run_dir = OPTION_DIR / "run-dense"
+    torch.cuda.reset_peak_memory_stats()
+    results, counts = _train(["--config-name", "h36m.yaml", *one,
+                              f"training.loss_function={SOFTARGMAX_LOSS}",
+                              "debug.save_images=false",
+                              f"hydra.run.dir={run_dir}"])
+    peak = torch.cuda.max_memory_allocated()
+    summary = json.loads((run_dir / "train_summary.json").read_text())
+    res = eval_cli.main(["--config-name", "h36m.yaml", *one,
+                         f"eval.output_path={run_dir}"])[ITERATIONS]
+    print(f"  dense {SOFTARGMAX_LOSS}: launches {counts}; peak device memory "
+          f"{peak} bytes (torch.cuda.max_memory_allocated); "
+          f"{summary['mean_seconds_per_scene']:.6f} s/scene; absolute MPJPE "
+          f"{res['absolute']:.4f} mm; 1 scene, {ITERATIONS} iterations, "
+          f"{N_VIEWS} views at {W}x{H}, on {card}", flush=True)
+    assert counts == {"raster_loss_grad": 0, "raster_loss": 0}, counts
+    assert len(results) == 1 and np.isfinite(res["absolute"]), res
+    dense_card_vs_cpu(h36m)
+
+    # (d) confidence-weighted fusion through K1
+    run_dir = OPTION_DIR / "run-fusion"
+    results, counts = _train(["--config-name", "h36m.yaml", *one,
+                              "+training.view_fusion=confidence_weighted",
+                              "debug.save_images=false",
+                              f"hydra.run.dir={run_dir}"])
+    res = eval_cli.main(["--config-name", "h36m.yaml", *one,
+                         f"eval.output_path={run_dir}"])[ITERATIONS]
+    print(f"  view_fusion=confidence_weighted: launches {counts}; absolute "
+          f"MPJPE {res['absolute']:.4f} mm, relative {res['relative']:.4f} "
+          f"mm", flush=True)
+    assert counts == {"raster_loss_grad": ITERATIONS // 4,
+                      "raster_loss": 0}, counts
+    assert np.isfinite(res["absolute"]), res
+    row["launches_fusion"] = counts["raster_loss_grad"]
+
+    # (e) triangulation over (a)'s tree, card against CPU
+    assert DATASETS[0][0] == "panoptic"
+    pan_run, pan_root = runs["panoptic"]
+    tri = ["--config-name", "triangulation.yaml",
+           f"dataset.data_root={pan_root}"]
+    stdout = sys.stdout
+    try:
+        gpu_dir = Path(tri_cli.main([*tri, f"hydra.run.dir={OPTION_DIR / 'tri-gpu'}"]))
+        cpu_dir = Path(tri_cli.main(["--device", "cpu", *tri,
+                                     f"hydra.run.dir={OPTION_DIR / 'tri-cpu'}"]))
+    finally:
+        sys.stdout = stdout
+    names = sorted(p.name for p in (gpu_dir / "point_cloud" /
+                                    "iteration_0").iterdir())
+    assert len(names) == DATASET_SCENES, names
+    rel = 0.0
+    for name in names:
+        g, c = (ply.read_xyz(str(d / "point_cloud" / "iteration_0" / name))
+                for d in (gpu_dir, cpu_dir))
+        rel = max(rel, float(np.abs(g - c).max() / np.abs(c).max()))
+    print(f"  triangulation on the card vs the CPU: {len(names)} clouds, "
+          f"largest |difference| {rel:.3g} of the largest |coordinate|",
+          flush=True)
+    assert rel <= TRI_REL, rel
+
+    # (f) render over (a)'s run
+    out = Path(render_cli.main([
+        "--config-name", "panoptic.yaml", f"dataset.data_root={pan_root}",
+        f"dataset.end_scene_id={DATASET_SCENES}",
+        f"eval.output_path={pan_run}", f"render.iteration={ITERATIONS}"]))
+    pngs = sorted(out.glob("*.png"))
+    assert len(pngs) == N_VIEWS * DATASET_SCENES, pngs
+    from PIL import Image
+
+    pan_w, pan_h = DATASETS[0][1]
+    for p in pngs:
+        im = np.asarray(Image.open(p))
+        assert im.shape == (pan_h, pan_w) and im.max() == 255, (p, im.shape)
+    print(f"  render: {len(pngs)} PNGs of {pan_w}x{pan_h} under {out}",
+          flush=True)
+    return row, err
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -801,7 +1086,7 @@ def main():
 
     from skelsplat_tpu_torch.tools.timing import card_line
 
-    print("[1/7] build", flush=True)
+    print("[1/8] build", flush=True)
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.load_library()
@@ -824,10 +1109,10 @@ def main():
     print(f"  card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
 
-    print("[2/7] kernels against their plain versions", flush=True)
+    print("[2/8] kernels against their plain versions", flush=True)
     rows, timed, timed_b = phase_kernels()
 
-    print("[3/7] path: one H36M frame through SceneTrainer.optimize_scene",
+    print("[3/8] path: one H36M frame through SceneTrainer.optimize_scene",
           flush=True)
     counts, s_per_frame, (e0, e1) = phase_path(args.profile)
     for row in rows:
@@ -836,10 +1121,10 @@ def main():
           f"{ITERATIONS} iterations, 4 views at {W}x{H}) on {card}",
           flush=True)
 
-    print("[4/7] renderer agreement: cuda vs fused", flush=True)
+    print("[4/8] renderer agreement: cuda vs fused", flush=True)
     phase_agree()
 
-    print("[5/7] measurement path: K3, roofline, kernel_probe, "
+    print("[5/8] measurement path: K3, roofline, kernel_probe, "
           "trace_summary", flush=True)
     k1, k2 = rows
     k3_row, k1_bound, k2_bound, k1_bound_b = phase_measure(
@@ -850,7 +1135,7 @@ def main():
         k1_bound_b
     rows.append(k3_row)
 
-    print("[6/7] cli: train.main and eval.main over a synthetic H36M tree",
+    print("[6/8] cli: train.main and eval.main over a synthetic H36M tree",
           flush=True)
     cli_counts, s_per_scene, _ = phase_cli()
     k1["launches_cli"] = cli_counts["raster_loss_grad"]
@@ -859,10 +1144,17 @@ def main():
           f"iterations, 4 views at {W}x{H}, save_images) on {card}",
           flush=True)
 
-    print("[7/7] batch: train.main at scene_batch 1 and 8 over a 10-scene "
+    print("[7/8] batch: train.main at scene_batch 1 and 8 over a 10-scene "
           "synthetic H36M tree", flush=True)
     batch_counts, _, _ = phase_batch(card, args.profile)
     k1["launches_batch"] = batch_counts["raster_loss_grad"]
+
+    print("[8/8] options: Panoptic and Occlusion-Person sweeps, the dense "
+          "soft-argmax path, confidence-weighted fusion, triangulation, "
+          "render", flush=True)
+    fields, k1_err = phase_options(card)
+    k1.update(fields)
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_err)
 
     print(card)
     print(json.dumps({

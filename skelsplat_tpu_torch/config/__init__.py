@@ -151,3 +151,13 @@ class ConfigHandler:
         self.optimization = cfg.optimization
         self.pipeline = cfg.pipeline
 
+
+
+class TriangulationConfigHandler:
+    """The run dir and the dataset and debug groups of a triangulation
+    config."""
+
+    def __init__(self, cfg: Config):
+        self.hydra_out = cfg.run_dir
+        self.dataset = cfg.dataset
+        self.debug = cfg.debug

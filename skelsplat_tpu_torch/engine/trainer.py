@@ -32,16 +32,17 @@ import torch
 from skelsplat_tpu_torch import losses as loss_registry
 from skelsplat_tpu_torch import resolve_device
 from skelsplat_tpu_torch.core.cameras import Camera, flatten_scenes
-from skelsplat_tpu_torch.core.gaussians import (GaussianParams, SkeletonModel,
-                                                init_params)
+from skelsplat_tpu_torch.core.gaussians import (PARAM_FIELDS, GaussianParams,
+                                                SkeletonModel, init_params)
 from skelsplat_tpu_torch.engine.optim import AdamGroups, OptConfig
 from skelsplat_tpu_torch.ops import cuda_raster
 from skelsplat_tpu_torch.ops import heatmaps as hm
 from skelsplat_tpu_torch.ops import rasterizer
 from skelsplat_tpu_torch.ops.fused import FUSED_LOSSES, make_fused_view_loss
+from skelsplat_tpu_torch.ops.similarity import confidence_weighted_mean
 
 REPEAT_TOL = 1e-6  # OptEarlyStopping repeat_tolerance
-RENDERERS = ("cuda", "fused", "dense")
+RENDERERS = ("auto", "cuda", "fused", "dense")
 
 
 def stop_offset(hist8, cur, tol):
@@ -102,9 +103,21 @@ def _last_visit_rows(acc_gx, grads_xyz, idxs, m_star):
     return torch.where((j_last >= 0)[..., None, None], rows, acc_gx)
 
 
+def view_fusion_fn(view_fusion: str):
+    """The xyz fusion over the view axis (dim −3 of (…,V,N,3)): "mean", the
+    reference's plain mean, or "confidence_weighted", each view weighted
+    by its gradient's agreement with the others (``ops/similarity.py``)."""
+    if view_fusion == "confidence_weighted":
+        return confidence_weighted_mean
+    if view_fusion == "mean":
+        return lambda g: torch.mean(g, dim=-3)
+    raise ValueError(f"unknown view_fusion {view_fusion!r}")
+
+
 def compose_macro(adam: AdamGroups, V_accum: int, use_stop: bool,
                   general: bool, carry, k, losses_v, grads_v: GaussianParams,
-                  idxs, pose_3d_gt, spatial_lr_scale, lean: bool = False):
+                  idxs, pose_3d_gt, spatial_lr_scale,
+                  view_fusion: str = "mean", lean: bool = False):
     """One macro step's gradient composition + Adam update + telemetry.
 
     ``carry`` = (params, opt_state, [hist8,] stopped[, acc_gx]);
@@ -114,8 +127,10 @@ def compose_macro(adam: AdamGroups, V_accum: int, use_stop: bool,
     losses, grads, ``pose_3d_gt`` and ``spatial_lr_scale`` may carry leading
     scene axes: each scene composes, steps and stops on its own. Returns
     (new_carry, rec) with rec = (losses_v, err, err_rel, stop_mark), or
-    (losses_v, stop_mark) when ``lean``.
+    (losses_v, stop_mark) when ``lean``. ``view_fusion`` picks the xyz
+    fusion (``view_fusion_fn``); the other groups step on the last view.
     """
+    fuse_xyz = view_fusion_fn(view_fusion)
     lead = tuple(losses_v.shape[:-1])
     dev = losses_v.device
     acc_gx = None
@@ -132,14 +147,14 @@ def compose_macro(adam: AdamGroups, V_accum: int, use_stop: bool,
         m_star = torch.full(lead, V_accum, dtype=torch.int64, device=dev)
     if general:
         acc_gx = _last_visit_rows(acc_gx, grads_v.xyz, idxs, m_star)
-        g_xyz = torch.mean(acc_gx, dim=-3)
+        g_xyz = fuse_xyz(acc_gx)
     elif use_stop:
         row_new = (torch.arange(V_accum, device=dev)[:, None, None]
                    < m_star[..., None, None, None])
         acc_gx = torch.where(row_new, grads_v.xyz, acc_gx)
-        g_xyz = torch.mean(acc_gx, dim=-3)
+        g_xyz = fuse_xyz(acc_gx)
     else:
-        g_xyz = torch.mean(grads_v.xyz, dim=-3)
+        g_xyz = fuse_xyz(grads_v.xyz)
     # the last visited view (A−1 without a stop), as an index tensor: a
     # Python int would wait for the device
     oidx = (m_star - 1).reshape(lead + (1, 1, 1))
@@ -219,6 +234,7 @@ class TrainSettings:
     accumulation_steps: int = 4
     dropout: bool = False
     std_dev_noise: float = 0.0  # σ (mm) of the noise added to the initial pose
+    view_fusion: str = "mean"   # xyz fusion: mean | confidence_weighted
 
 
 @dataclasses.dataclass(frozen=True)
@@ -234,18 +250,38 @@ class MacroHistory:
     hist8: torch.Tensor | None = None
 
 
+def _check_finite(k: int, A: int, losses_v, grads_v: GaussianParams,
+                  params: GaussianParams):
+    """Debug mode: raise ``FloatingPointError`` naming macro step ``k``
+    (0-based, ``A`` iterations a step) if its losses, gradients or updated
+    parameters hold a NaN or an infinity. One host sync."""
+    named = [("losses", losses_v)]
+    named += [(f"{f} gradient", getattr(grads_v, f)) for f in PARAM_FIELDS]
+    named += [(f"{f} parameter", getattr(params, f)) for f in PARAM_FIELDS]
+    finite = torch.stack([torch.isfinite(t).all() for _, t in named]).tolist()
+    bad = [name for (name, _), ok in zip(named, finite) if not ok]
+    if bad:
+        raise FloatingPointError(
+            f"non-finite {', '.join(bad)} at macro step {k} (iterations "
+            f"{k * A + 1}-{(k + 1) * A})")
+
+
 class SceneTrainer:
     """Runs the full per-scene optimization on one device.
 
     ``renderer``: "cuda" (the hand-written kernel; its plain PyTorch
-    version on the CPU), "fused" (the row-chunk autograd stream) or "dense"
-    (full images through the autograd oracle and the loss registry).
+    version on the CPU), "fused" (the row-chunk autograd stream), "dense"
+    (full images through the autograd oracle and the loss registry) or
+    "auto": the kernel for the masked heatmap losses it implements, dense
+    for every other loss (the soft-argmax and plain-mean losses).
+    ``debug`` checks every macro step's losses, gradients and parameters
+    for NaN and infinity, at one host sync a step (``_check_finite``).
     """
 
     def __init__(self, model: SkeletonModel, opt: OptConfig,
                  settings: TrainSettings, width: int, height: int,
-                 antialiasing: bool = False, renderer: str = "cuda",
-                 device="cuda"):
+                 antialiasing: bool = False, renderer: str = "auto",
+                 device="cuda", debug: bool = False):
         self.device = resolve_device(device)
         self.model = model
         self.opt = opt
@@ -257,10 +293,15 @@ class SceneTrainer:
         if renderer not in RENDERERS:
             raise ValueError(f"renderer must be one of {RENDERERS}, "
                              f"got {renderer!r}")
+        view_fusion_fn(settings.view_fusion)
+        if renderer == "auto":
+            renderer = ("cuda" if settings.loss_function in FUSED_LOSSES
+                        else "dense")
         if renderer != "dense" and settings.loss_function not in FUSED_LOSSES:
             raise ValueError(f"renderer {renderer!r} does not implement "
                              f"{settings.loss_function!r}")
         self.renderer = renderer
+        self.debug = debug
         self.n_macro = opt.iterations // settings.accumulation_steps
         self.adam = AdamGroups(opt)
         if renderer == "cuda":
@@ -286,7 +327,8 @@ class SceneTrainer:
         loss_fn = loss_registry.losses[self.settings.loss_function]
         main, _ = loss_fn(render, gt_heatmaps, poses_2d,
                           self.settings.lambda_loss_function,
-                          reduction="mean")
+                          reduction="mean",
+                          domain=(cameras.width, cameras.height))
         cons_fn = loss_registry.consistency_losses[
             self.settings.consistency_loss]
         cons = cons_fn(params.xyz, self.model.scene_type, reduction="mean")
@@ -498,7 +540,10 @@ class SceneTrainer:
                 carry[0], cams_k, aux_k, p2d_k, A)
             carry, rec = compose_macro(
                 self.adam, A, use_stop, general, carry, ks[k], losses_v,
-                grads_v, idx_all[k], pose_3d_gt, extent, lean=lean)
+                grads_v, idx_all[k], pose_3d_gt, extent,
+                self.settings.view_fusion, lean=lean)
+            if self.debug:
+                _check_finite(k, A, losses_v, grads_v, carry[0])
             losses_h[..., 0 if lean else k, :] = rec[0]
             stop_max = torch.maximum(stop_max, rec[-1])
             if not lean:

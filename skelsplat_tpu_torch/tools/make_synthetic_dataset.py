@@ -26,7 +26,20 @@ from skelsplat_tpu_torch.data.cameras_io import H36M_CAMERAS
 ACTIVITIES = ["Directions", "Walking"]
 
 
+def _size(image_size):
+    """(width, height) of an ``image_size`` given as one int (a square
+    image) or a (width, height) pair."""
+    if isinstance(image_size, (int, np.integer)):
+        return int(image_size), int(image_size)
+    w, h = image_size
+    return int(w), int(h)
+
+
 def make_rig(n_views=4, img=1000, dist=4500.0, focal_scale=2.3):
+    """``n_views`` cameras on a ring looking at the volume, for images of
+    ``img`` (an int, or a (width, height) pair: the focal then scales with
+    the shorter side)."""
+    w, h = _size(img)
     cams = []
     rng = np.random.default_rng(42)
     for v in range(n_views):
@@ -42,9 +55,9 @@ def make_rig(n_views=4, img=1000, dist=4500.0, focal_scale=2.3):
         y = np.cross(z, x)
         R = np.stack([x, y, z], axis=0)          # world→camera
         t = -R @ pos
-        f = focal_scale * img
-        K = np.array([[f, 0, img / 2 + rng.normal(0, 2)],
-                      [0, f * 1.002, img / 2 + rng.normal(0, 2)],
+        f = focal_scale * min(w, h)
+        K = np.array([[f, 0, w / 2 + rng.normal(0, 2)],
+                      [0, f * 1.002, h / 2 + rng.normal(0, 2)],
                       [0, 0, 1.0]])
         cams.append((K, R, t))
     return cams
@@ -133,7 +146,9 @@ def write_panoptic_tree(root: str, activities=("171204_pose5",
                         seed=0):
     """Panoptic-layout synthetic tree: S0/<activity> with per-activity
     calibration jsons, poses_filtered_{nviews} files, 19 joints, cm-unit t
-    in the calibration (the loader multiplies by 10)."""
+    in the calibration (the loader multiplies by 10). ``image_size`` is an
+    int (square images) or a (width, height) pair; (1920, 1080), the real
+    cameras' size, is the loader's default and is not written."""
     import json as _json
 
     from skelsplat_tpu_torch.data.cameras_io import PANOPTIC_CAMERAS
@@ -146,8 +161,8 @@ def write_panoptic_tree(root: str, activities=("171204_pose5",
 
     for ai, activity in enumerate(activities):
         cal = {"cameras": []}
-        if image_size != 1080:
-            cal["image_size"] = [image_size, image_size]
+        if image_size != 1080 and _size(image_size) != (1920, 1080):
+            cal["image_size"] = list(_size(image_size))
         for name, (K, R, t) in zip(PANOPTIC_CAMERAS, cams):
             cal["cameras"].append({
                 "name": name, "K": K.tolist(), "R": R.tolist(),
@@ -183,7 +198,9 @@ def write_occlusion_person_tree(root: str, frames=8, image_size=256,
                                 noise_3d=60.0, seed=0):
     """Occlusion-Person layout: S0/validation, 8 cameras '0'..'7' with the
     per-scene cameras.json (fx/fy/cx/cy/R/T with T = camera center so the
-    loader's t = −R·T holds), 15 joints."""
+    loader's t = −R·T holds), 15 joints. ``image_size`` is an int (square
+    images) or a (width, height) pair; (1280, 720), the real cameras'
+    size, is the loader's default and is not written."""
     import json as _json
 
     rng = np.random.default_rng(seed)
@@ -199,8 +216,8 @@ def write_occlusion_person_tree(root: str, frames=8, image_size=256,
             cam_rec = {
                 "fx": K[0, 0], "fy": K[1, 1], "cx": K[0, 2], "cy": K[1, 2],
                 "R": R.tolist(), "T": center.reshape(3, 1).tolist()}
-            if image_size != 720:
-                cam_rec["image_size"] = [image_size, image_size]
+            if image_size != 720 and _size(image_size) != (1280, 720):
+                cam_rec["image_size"] = list(_size(image_size))
             per_scene.append(cam_rec)
         cameras_json[str(scene_id)] = per_scene
     os.makedirs(root, exist_ok=True)
@@ -233,20 +250,28 @@ def main(argv=None):
     ap.add_argument("--subjects", nargs="+", default=["S9", "S11"])
     ap.add_argument("--frames", type=int, default=128)
     ap.add_argument("--frame-step", type=int, default=64)
-    ap.add_argument("--image-size", type=int, default=1000)
+    ap.add_argument("--image-size", type=int, nargs="+", default=[1000],
+                    help="one size (square images) or width and height "
+                         "(panoptic and occlusion-person layouts)")
     ap.add_argument("--detector", default="metrabs")
     ap.add_argument("--layout", default="h36m",
                     choices=["h36m", "panoptic", "occlusion-person"])
     args = ap.parse_args(argv)
+    if len(args.image_size) > 2 or (len(args.image_size) == 2
+                                    and args.layout == "h36m"):
+        ap.error("--image-size takes one size, or width and height for the "
+                 "panoptic and occlusion-person layouts")
+    size = (args.image_size[0] if len(args.image_size) == 1
+            else tuple(args.image_size))
     if args.layout == "panoptic":
         n = write_panoptic_tree(args.root, frames=args.frames,
-                                image_size=args.image_size)
+                                image_size=size)
     elif args.layout == "occlusion-person":
         n = write_occlusion_person_tree(args.root, frames=args.frames,
-                                        image_size=args.image_size)
+                                        image_size=size)
     else:
         n = write_tree(args.root, args.subjects, args.frames,
-                       args.frame_step, args.image_size, args.detector)
+                       args.frame_step, size, args.detector)
     print(f"Wrote synthetic {args.layout}-style dataset with {n} scenes "
           f"to {args.root}")
 

@@ -7,6 +7,7 @@ cross-scene early-stop window with noise injection against JAX's
 import filecmp
 import json
 import os
+import sys
 
 import jax
 import numpy as np
@@ -207,17 +208,63 @@ def test_early_stopped_scenes_save_under_their_stop_iteration(tree,
                                       ply.read_xyz(str(jrun / name)))
 
 
-@pytest.mark.parametrize("override", [
-    "+training.multichip=true",
-    "+training.view_fusion=confidence_weighted", "training.loss_function=l1",
-    "pipeline.debug=true", "eval.image_metrics=true"])
+@pytest.mark.parametrize("override", ["eval.image_metrics=true"])
 def test_unported_options_raise(tree, tmp_path, override):
     args = ["--config-name", "h36m.yaml", "--device", "cpu",
             *_overrides(tree, str(tmp_path / "run")), override]
-    main = teval_cli.main if override.startswith("eval.") else ttrain_cli.main
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        main(args)
+    with pytest.raises(SystemExit, match="ROADMAP.md §1 item 10"):
+        teval_cli.main(args)
     assert not (tmp_path / "run" / "point_cloud").exists()
+
+
+@pytest.fixture
+def restore_debug_nans():
+    """The JAX CLI's pipeline.debug turns jax_debug_nans on for the
+    process; put it back for the tests that follow."""
+    before = jax.config.jax_debug_nans
+    yield
+    jax.config.update("jax_debug_nans", before)
+
+
+@pytest.mark.parametrize("override", [
+    "+training.multichip=true",
+    "+training.view_fusion=confidence_weighted", "training.loss_function=l1",
+    "pipeline.debug=true"])
+def test_lifted_options_match_the_jax_cli(tree, tmp_path, override,
+                                          restore_debug_nans):
+    """Options the port once refused run as in the JAX CLI and write the
+    same PLYs. Multichip: this test run gives JAX 8 CPU devices, so the
+    JAX CLI takes its mesh path; the port on one device takes its serial
+    path. The loss l1 runs the dense renderer in both. xyz within the
+    1e-3 mm Adam bar of the batch tests (test_torch_batch.XYZ_ATOL)."""
+    import train as jtrain_cli
+
+    runs = {"jax": tmp_path / "jax", "port": tmp_path / "port"}
+    for pkg, run in runs.items():
+        args = ["--config-name", "h36m.yaml", *_overrides(tree, str(run)),
+                "debug.save_images=false", override]
+        stdout = sys.stdout   # train's safe_state replaces it
+        try:
+            if pkg == "jax":
+                jtrain_cli.main(args)
+            else:
+                ttrain_cli.main(["--device", "cpu", *args])
+        finally:
+            sys.stdout = stdout
+    js, ts = (json.load(open(r / "train_summary.json"))["scenes"]
+              for r in (runs["jax"], runs["port"]))
+    assert [t["scene_name"] for t in ts] == [j["scene_name"] for j in js]
+    for t, j in zip(ts, js):
+        assert abs(t["abs_error"] - j["abs_error"]) < 1e-3
+    for it in ITERS:
+        d = os.path.join("point_cloud", f"iteration_{it}")
+        names = sorted(os.listdir(runs["jax"] / d))
+        assert sorted(os.listdir(runs["port"] / d)) == names
+        assert len(names) == 2
+        for name in names:
+            np.testing.assert_allclose(
+                ply.read_xyz(str(runs["port"] / d / name)),
+                ply.read_xyz(str(runs["jax"] / d / name)), rtol=0, atol=1e-3)
 
 
 @pytest.fixture(scope="module")
