@@ -99,6 +99,22 @@ Phases, each failing the script (nonzero exit) on any error:
              (e) the triangulation entry point over (a)'s tree on the card
              against the same on the CPU; (f) the render entry point over
              (a)'s run: 4 PNGs a scene.
+9. extras  — the eval extras and the 3DGS compatibility surface: (a)
+             ``skelsplat_tpu_torch.eval.main`` with eval.image_metrics=true
+             over phase 6's run (4 scenes, 1002/1000x1000, 17 channels)
+             with random VGG LPIPS weights (seed 0) written as an npz: 0 K1
+             launches, SSIM, LPIPS, s/scene and peak device memory; one
+             scene's metrics on the CPU against the card's (SSIM within
+             SSIM_ATOL, LPIPS within LPIPS_RTOL: the check that the eval
+             path runs its convolutions in full f32), and LPIPS alone on
+             one scene's 4 views by CUDA events with its peak memory; (b)
+             ``tools/bench_ssim.py`` at 5x1x1080x1920 (plain, fused, fused
+             and plain forward + backward, the fused backward against
+             autograd through the plain SSIM); (c) the native codec's bulk
+             read of phases 6 and 7's result clouds, bitwise against the
+             numpy reader, with both times; (d) a GaussianModel from a
+             Scene: Adam steps on a dense render loss, densify_and_prune,
+             reset_opacity and a PLY round trip.
 
 The line before the last is {"kernels": [...], "off_path_kernels": [...]}:
 "kernels" lists the kernels the paths launched (K1 on the frame, with
@@ -159,6 +175,14 @@ SOFTARGMAX_LOSS = "l1_masked_huber"
 # (on the CPU, the port against JAX's op-by-op dense path: 4.1e-5)
 DENSE_GRAD_RTOL = 1e-4
 TRI_REL = 1e-9
+# phase 9, card against CPU on one scene: SSIM's mean over ~1e6 pixels
+# and LPIPS at the JAX package's own bar against a torch oracle; TF32
+# convolutions would break the LPIPS bound
+SSIM_ATOL = 1e-6
+LPIPS_RTOL = 2e-4
+EXTRAS_DIR = SMOKE_DIR / "extras"
+SSIM_SHAPE = ("5", "1", "1080", "1920")   # the JAX tool's default
+COMPAT_STEPS = 3
 # dg tolerance relative to the largest |dg| of the same view and gradient
 # component (px, py, a, b, c or opa) over the slots: both sides sum ~1e5
 # per-pixel f32 terms, the kernel by warp/tile trees and the plain version
@@ -1072,6 +1096,221 @@ def phase_options(card: str):
     return row, err
 
 
+def _image_metrics_card_vs_cpu(cfg, run_dir, weights, card_scene):
+    """Phase 9 (a): one scene's image metrics on the CPU against the
+    card's. Returns (|dSSIM|, LPIPS relative difference)."""
+    from skelsplat_tpu_torch.evaluation import image_metrics
+
+    cpu = image_metrics(_loader(cfg, 1), str(run_dir),
+                        scaling=float(cfg.model.scaling),
+                        scaling_modifier=float(cfg.model.scaling_modifier),
+                        lpips_weights=weights, print_fn=lambda *_: None,
+                        device="cpu")["per_scene"]
+    (name, c), = cpu.items()
+    g = card_scene[name]
+    d_ssim = abs(g["ssim"] - c["ssim"])
+    d_lpips = abs(g["lpips"] - c["lpips"]) / abs(c["lpips"])
+    print(f"  card vs CPU on {name}: SSIM {g['ssim']:.9f} vs "
+          f"{c['ssim']:.9f} (|d| {d_ssim:.3g}, bar {SSIM_ATOL:g}); LPIPS "
+          f"{g['lpips']:.9f} vs {c['lpips']:.9f} (relative {d_lpips:.3g}, "
+          f"bar {LPIPS_RTOL:g})", flush=True)
+    assert d_ssim <= SSIM_ATOL and d_lpips <= LPIPS_RTOL, (g, c)
+    return d_ssim, d_lpips
+
+
+def _time_lpips(cfg, run_dir, weights, card: str):
+    """Phase 9 (a): LPIPS alone on one scene's 4 views, by CUDA events,
+    and its peak device memory."""
+    from skelsplat_tpu_torch.core.gaussians import scene_type_of
+    from skelsplat_tpu_torch.evaluation import (_scene_plys, lpips_inputs,
+                                                scene_images)
+    from skelsplat_tpu_torch.ops.lpips import LPIPS
+    from skelsplat_tpu_torch.tools.timing import cuda_ms
+
+    _, rec = next(iter(_loader(cfg, 1)))
+    model = LPIPS.from_npz(weights)
+    with torch.no_grad():
+        a, b = lpips_inputs(*scene_images(
+            rec, _scene_plys(str(run_dir))[rec.scene_name],
+            scene_type_of(cfg.dataset.data_root),
+            float(cfg.model.scaling), float(cfg.model.scaling_modifier),
+            model.mean.device))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        device_ms, ms = cuda_ms(lambda: model(a, b), 5, warmup=1)
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"  LPIPS (vgg) on one scene's {a.shape[0]} views of "
+          f"{a.shape[3]}x{a.shape[2]}: {ms:.4f} ms (CUDA events, mean of 5 "
+          f"after a warm-up), kernels {device_ms:.4f} ms; peak {peak} bytes "
+          f"above its inputs (torch.cuda.max_memory_allocated), on {card}",
+          flush=True)
+    return ms, device_ms, peak
+
+
+def _read_clouds(card: str):
+    """Phase 9 (c): the native codec's bulk read of phase 6's and 7's
+    result clouds against the numpy reader, bitwise, and both times."""
+    from skelsplat_tpu_torch import native
+    from skelsplat_tpu_torch.data import ply
+
+    paths = sorted(str(p) for d in (SMOKE_DIR / "run", BATCH_DIR)
+                   for p in d.rglob("point_cloud/iteration_*/*.ply"))
+    out, counts = native.read_xyz_batch(paths, max_pts=64)
+    ref = [ply.read_xyz(p) for p in paths]
+    for i, r in enumerate(ref):
+        assert counts[i] == r.shape[0], (paths[i], counts[i])
+        assert np.array_equal(out[i, :counts[i]], r.astype(np.float32)), \
+            paths[i]
+    times = {}
+    for name, fn in (("codec", lambda: native.read_xyz_batch(paths)),
+                     ("numpy", lambda: [ply.read_xyz(p) for p in paths])):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        times[name] = (time.perf_counter() - t0) / 5 * 1e3
+    print(f"  codec bulk read of {len(paths)} clouds bitwise equal to the "
+          f"numpy reader; codec {times['codec']:.3f} ms, numpy "
+          f"{times['numpy']:.3f} ms (host clock, mean of 5 after one)",
+          flush=True)
+    return len(paths), times
+
+
+def _gaussian_model(cfg):
+    """Phase 9 (d): the upstream-3DGS object API on the card, from a
+    Scene through Adam steps, densification, the opacity reset and a PLY
+    round trip."""
+    import types
+
+    from skelsplat_tpu_torch import compat, renderer_registry
+    from skelsplat_tpu_torch.core.gaussians import (PARAM_FIELDS, init_params,
+                                                    scene_type_of)
+    from skelsplat_tpu_torch.data.camera_utils import loadCam
+    from skelsplat_tpu_torch.ops import densify
+
+    _, rec = next(iter(_loader(cfg, 1)))
+    out_dir = EXTRAS_DIR / "compat"
+    g = compat.GaussianModel()
+    scene = compat.Scene(cfg.dataset, cfg.model, g, rec.pose_3d, rec.cameras,
+                         rec.scene_name, str(out_dir))
+    g.training_setup(cfg.optimization)
+    render = renderer_registry.render_functions[cfg.pipeline.rendering]
+    cam = loadCam(types.SimpleNamespace(resolution=-1), 0, rec.cameras[0],
+                  1.0, device=g.device)
+    with torch.no_grad():
+        target = render(cam, init_params(
+            rec.pose_3d_gt, scene_type_of(cfg.dataset.data_root),
+            float(cfg.model.scaling), float(cfg.model.scaling_modifier),
+            device=g.device))["render"]
+    losses = []
+    for it in range(1, COMPAT_STEPS + 1):
+        leaves = [getattr(g.params, f).detach().requires_grad_(True)
+                  for f in PARAM_FIELDS]
+        out = render(cam, type(g.params)(*leaves))
+        loss = torch.mean((out["render"] - target) ** 2)
+        grads = torch.autograd.grad(loss, leaves)
+        g.step(type(g.params)(*grads), it)
+        losses.append(float(loss.detach()))
+    n = g.params.n_joints
+    aux = densify.add_densification_stats(
+        densify.DensifyAux.zeros(n), grads[0], out["radii"],
+        out["visibility_filter"])
+    params, state, aux = densify.densify_and_prune(
+        g.params, g.opt_state, aux, max_grad=0.0, min_opacity=0.005,
+        extent=scene.cameras_extent, max_screen_size=None,
+        radii=out["radii"])
+    n2 = params.n_joints
+    assert n2 >= n and aux.denom.shape == (n2, 1), (n, n2)
+    for f in PARAM_FIELDS:
+        for t in (getattr(params, f), getattr(state.m, f),
+                  getattr(state.v, f)):
+            assert t.shape[0] == n2, (f, t.shape)
+            assert t.device.type == g.device.type, (f, t.device)
+    params, state = densify.reset_opacity(params, state)
+    assert float(torch.sigmoid(params.opacity_logit).max()) <= 0.01 + 1e-6
+    g.params, g.opt_state = params, state
+    scene.save(COMPAT_STEPS)
+    g2 = compat.GaussianModel()
+    g2.load_ply(str(out_dir / "point_cloud" / f"iteration_{COMPAT_STEPS}"
+                    / "point_cloud.ply"))
+    for f in PARAM_FIELDS:
+        assert torch.equal(getattr(g2.params, f), getattr(params, f)), f
+    print(f"  GaussianModel: Scene of {n} joints, {COMPAT_STEPS} Adam steps "
+          f"(loss {losses[0]:.6g} -> {losses[-1]:.6g}), densify_and_prune "
+          f"{n} -> {n2} Gaussians, reset_opacity, PLY round trip equal",
+          flush=True)
+    return n2
+
+
+def phase_extras(card: str):
+    """Phase 9: the eval extras and the compatibility surface on the card.
+    Returns the phase's numbers."""
+    import shutil
+
+    from skelsplat_tpu_torch import eval as eval_cli
+    from skelsplat_tpu_torch.config import load_config
+    from skelsplat_tpu_torch.ops import cuda_raster as cr
+    from skelsplat_tpu_torch.ops import lpips
+    from skelsplat_tpu_torch.tools import bench_ssim
+
+    shutil.rmtree(EXTRAS_DIR, ignore_errors=True)
+    EXTRAS_DIR.mkdir(parents=True)
+    root, run_dir = SMOKE_DIR / "synth-h36m", SMOKE_DIR / "run"
+    weights = str(EXTRAS_DIR / "vgg.npz")
+    lpips.save_npz(weights, lpips.random_weights("vgg", seed=0), "vgg")
+    overrides = [f"dataset.data_root={root}",
+                 f"dataset.end_scene_id={CLI_SCENES}"]
+    cfg = load_config("h36m.yaml", overrides, make_run_dir=False)
+
+    # (a) eval.image_metrics=true over phase 6's run
+    for k in cr.launches:
+        cr.launches[k] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = eval_cli.main(["--config-name", "h36m.yaml", *overrides,
+                         f"eval.output_path={run_dir}",
+                         "eval.image_metrics=true",
+                         f"eval.lpips_weights={weights}"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    im = res["image_metrics"]
+    print(f"  eval.main with image_metrics: SSIM {im['ssim']:.6f}, LPIPS "
+          f"(vgg, random weights seed 0) {im['lpips']:.6f} over "
+          f"{len(im['per_scene'])} scenes; {seconds / CLI_SCENES:.6f} s/scene "
+          f"(host clock, MPJPE included); peak device memory {peak} bytes; "
+          f"launches {dict(cr.launches)}; on {card}", flush=True)
+    assert len(im["per_scene"]) == CLI_SCENES, im
+    assert 0.0 < im["ssim"] < 1.0 and im["lpips"] > 0.0, im
+    assert all(np.isfinite([e["ssim"], e["lpips"]]).all()
+               for e in im["per_scene"].values()), im
+    assert cr.launches == {"raster_loss_grad": 0, "raster_loss": 0}
+    d_ssim, d_lpips = _image_metrics_card_vs_cpu(cfg, run_dir, weights,
+                                                 im["per_scene"])
+    lpips_ms, lpips_device_ms, lpips_peak = _time_lpips(cfg, run_dir,
+                                                        weights, card)
+
+    # (b) SSIM at the JAX tool's default shape
+    bench = bench_ssim.main(["--shape", *SSIM_SHAPE])
+    assert bench["grad_max_abs_err"] <= bench_ssim.GRAD_ATOL, bench
+    print(f"  bench_ssim at {'x'.join(SSIM_SHAPE)} on {card}", flush=True)
+
+    # (c) the native codec
+    n_clouds, read_ms = _read_clouds(card)
+
+    # (d) GaussianModel
+    n_gaussians = _gaussian_model(cfg)
+    return {"ssim": im["ssim"], "lpips": im["lpips"],
+            "s_per_scene": seconds / CLI_SCENES, "peak_bytes": peak,
+            "ssim_card_vs_cpu": d_ssim, "lpips_card_vs_cpu": d_lpips,
+            "lpips_ms": lpips_ms, "lpips_device_ms": lpips_device_ms,
+            "lpips_peak_bytes": lpips_peak,
+            "bench_ssim": bench, "clouds": n_clouds, "read_ms": read_ms,
+            "densified_to": n_gaussians}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1086,7 +1325,7 @@ def main():
 
     from skelsplat_tpu_torch.tools.timing import card_line
 
-    print("[1/8] build", flush=True)
+    print("[1/9] build", flush=True)
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.load_library()
@@ -1109,10 +1348,10 @@ def main():
     print(f"  card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
 
-    print("[2/8] kernels against their plain versions", flush=True)
+    print("[2/9] kernels against their plain versions", flush=True)
     rows, timed, timed_b = phase_kernels()
 
-    print("[3/8] path: one H36M frame through SceneTrainer.optimize_scene",
+    print("[3/9] path: one H36M frame through SceneTrainer.optimize_scene",
           flush=True)
     counts, s_per_frame, (e0, e1) = phase_path(args.profile)
     for row in rows:
@@ -1121,10 +1360,10 @@ def main():
           f"{ITERATIONS} iterations, 4 views at {W}x{H}) on {card}",
           flush=True)
 
-    print("[4/8] renderer agreement: cuda vs fused", flush=True)
+    print("[4/9] renderer agreement: cuda vs fused", flush=True)
     phase_agree()
 
-    print("[5/8] measurement path: K3, roofline, kernel_probe, "
+    print("[5/9] measurement path: K3, roofline, kernel_probe, "
           "trace_summary", flush=True)
     k1, k2 = rows
     k3_row, k1_bound, k2_bound, k1_bound_b = phase_measure(
@@ -1135,7 +1374,7 @@ def main():
         k1_bound_b
     rows.append(k3_row)
 
-    print("[6/8] cli: train.main and eval.main over a synthetic H36M tree",
+    print("[6/9] cli: train.main and eval.main over a synthetic H36M tree",
           flush=True)
     cli_counts, s_per_scene, _ = phase_cli()
     k1["launches_cli"] = cli_counts["raster_loss_grad"]
@@ -1144,17 +1383,24 @@ def main():
           f"iterations, 4 views at {W}x{H}, save_images) on {card}",
           flush=True)
 
-    print("[7/8] batch: train.main at scene_batch 1 and 8 over a 10-scene "
+    print("[7/9] batch: train.main at scene_batch 1 and 8 over a 10-scene "
           "synthetic H36M tree", flush=True)
     batch_counts, _, _ = phase_batch(card, args.profile)
     k1["launches_batch"] = batch_counts["raster_loss_grad"]
 
-    print("[8/8] options: Panoptic and Occlusion-Person sweeps, the dense "
+    print("[8/9] options: Panoptic and Occlusion-Person sweeps, the dense "
           "soft-argmax path, confidence-weighted fusion, triangulation, "
           "render", flush=True)
     fields, k1_err = phase_options(card)
     k1.update(fields)
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_err)
+
+    print("[9/9] extras: eval.image_metrics (SSIM, LPIPS) card vs CPU, "
+          "bench_ssim, the native PLY codec, GaussianModel", flush=True)
+    t0 = time.perf_counter()
+    extras = phase_extras(card)
+    print(f"  phase 9: {time.perf_counter() - t0:.1f} s; "
+          f"{json.dumps(extras)}", flush=True)
 
     print(card)
     print(json.dumps({

@@ -14,6 +14,15 @@ from __future__ import annotations
 
 import torch
 
+# Every f32 product and convolution runs at full precision, whichever entry
+# point imported the package: in TF32 (10-bit mantissa), geometry products
+# lose ~0.3% of covariance accuracy, far above the sub-mm parity budget, and
+# SSIM's and LPIPS's convolutions would part from the reference's f32 ones
+# (cuDNN allows TF32 for convolutions by default).
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+
 
 def resolve_device(device) -> torch.device:
     """``device`` as a ``torch.device``. A CUDA device on a host without a

@@ -49,15 +49,9 @@ from skelsplat_tpu_torch.engine.optim import OptConfig
 from skelsplat_tpu_torch.engine.trainer import SceneTrainer, TrainSettings
 from skelsplat_tpu_torch.ops import heatmaps as hm_ops
 from skelsplat_tpu_torch.ops import rasterizer
+from skelsplat_tpu_torch.renderer_registry import RENDERING_CHANNELS
 
 log = logging.getLogger(__name__)
-
-# pipeline.rendering config keys → channel counts
-RENDERING_CHANNELS = {
-    "diff-gaussian-rasterization-h36m": 17,
-    "diff-gaussian-rasterization-panoptic": 19,
-    "diff-gaussian-rasterization-op": 15,
-}
 
 S9_BAD = ["SittingDown 1", "Waiting 1", "Greeting"]
 

@@ -6,9 +6,13 @@ point (counterpart of the root ``eval.py``).
         [overrides ...]
 
 ``eval.output_path=<run dir>`` points at a run; without it the newest run
-dir of the config's template is used. The evaluation itself is numpy on
-the host; ``--device`` (default cuda) is checked like every entry point's.
-``eval.image_metrics=true`` (SSIM/LPIPS) is not ported yet and raises.
+dir of the config's template is used. MPJPE is numpy on the host.
+``eval.image_metrics=true`` also renders each scene's final splats on
+``--device`` (default cuda) and reports SSIM against the GT heatmaps, and
+LPIPS when weights are given (``eval.lpips_weights=<npz>``) or committed
+under ``skelsplat_tpu_torch/ops/lpips_weights/``; ``eval.lpips_net`` picks
+vgg (default), alex or squeeze. The returned dict then also holds the
+image metrics under "image_metrics".
 """
 
 import argparse
@@ -32,13 +36,13 @@ def main(argv=None):
                                             parse_overrides)
     from skelsplat_tpu_torch.evaluation import evaluate
 
-    resolve_device(args.device)
+    dev = resolve_device(args.device)
     ovr = parse_overrides(args.overrides)
     output_path = ovr.pop("eval.output_path", None)
-    if str(ovr.pop("eval.image_metrics", "false")).lower() in ("1", "true",
-                                                                "yes"):
-        raise SystemExit("eval.image_metrics=true is not ported to "
-                         "skelsplat_tpu_torch yet (ROADMAP.md §1 item 10)")
+    image_metrics_on = str(ovr.pop("eval.image_metrics", "false")
+                           ).lower() in ("1", "true", "yes")
+    lpips_weights = ovr.pop("eval.lpips_weights", None)
+    lpips_net = ovr.pop("eval.lpips_net", "vgg")
     remaining = [o for o in args.overrides
                  if o.split("=", 1)[0] not in EVAL_KEYS]
 
@@ -53,9 +57,26 @@ def main(argv=None):
 
     gt_path = os.path.join(dataset.data_root, "3d_gt")
     iterations = list(debug.save_iterations)
-    return evaluate(gt_path, output_path, iterations, dataset.start_scene_id,
-                    dataset.end_scene_id, dataset.poses_2d == "cpn",
-                    nviews=dataset.nviews)
+    results = evaluate(gt_path, output_path, iterations,
+                       dataset.start_scene_id, dataset.end_scene_id,
+                       dataset.poses_2d == "cpn", nviews=dataset.nviews)
+
+    if image_metrics_on:
+        from skelsplat_tpu_torch.data.loader import DataLoader
+        from skelsplat_tpu_torch.evaluation import image_metrics
+
+        loader = DataLoader(
+            dataset.data_root,
+            os.path.join(dataset.data_root, "initial_guess",
+                         dataset.initial_guess),
+            os.path.join(dataset.data_root, "2d_" + dataset.poses_2d),
+            frame_step=dataset.frame_step, start_id=dataset.start_scene_id,
+            end_id=dataset.end_scene_id, nviews=dataset.nviews)
+        results["image_metrics"] = image_metrics(
+            loader, output_path, scaling=float(cfg.model.scaling),
+            scaling_modifier=float(cfg.model.scaling_modifier),
+            lpips_net=lpips_net, lpips_weights=lpips_weights, device=dev)
+    return results
 
 
 if __name__ == "__main__":

@@ -37,13 +37,6 @@ from skelsplat_tpu_torch.core import geometry
 from skelsplat_tpu_torch.ops import heatmaps as hm
 from skelsplat_tpu_torch.ops import rasterizer
 
-# Below full f32, geometry products lose ~0.3% of covariance accuracy, far
-# above the sub-mm parity budget; the port runs every f32 product at full
-# precision.
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
-torch.set_float32_matmul_precision("highest")
-
 # Slot record, one per depth-sorted splat (csrc/raster_math.cuh):
 # [px, py, conic a, b, c, opa | rect x0, y0, x1, y1 (tiles) | B |
 #  GT support rows gy0, gy1 and columns gx0, gx1 (pixels) | unused]

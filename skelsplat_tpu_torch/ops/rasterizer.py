@@ -147,9 +147,10 @@ def pixel_offsets(pp: Preprocessed, ys: torch.Tensor, xs: torch.Tensor):
 
 
 def rasterize_dense(xyz, cov6, opacity, camera: Camera, W: int, H: int,
-                    antialiasing: bool = False):
+                    antialiasing: bool = False, features=None):
     """The full (…,N,H,W) per-joint image (one-hot features: channel j is
-    Gaussian j's α·T). Returns dict(render, radii, invdepth)."""
+    Gaussian j's α·T), or with (N,C) ``features`` the (…,C,H,W) image
+    Σ_n α·T·features[n]. Returns dict(render, radii, invdepth)."""
     pp = preprocess_gaussians(xyz, cov6, opacity, camera, W, H, antialiasing)
     dev = pp.depth.device
     ys = torch.arange(H, dtype=torch.int32, device=dev)
@@ -158,17 +159,20 @@ def rasterize_dense(xyz, cov6, opacity, camera: Camera, W: int, H: int,
     depth_s = torch.take_along_dim(pp.depth, order, dim=-1)
     inv_d = torch.where(depth_s != 0.0, 1.0 / depth_s, torch.zeros_like(depth_s))
     invdepth = torch.sum(contrib * _trail(inv_d, 2), dim=-3)
-    return {"render": _unsort(contrib, order), "radii": pp.radius,
-            "invdepth": invdepth}
+    image = (_unsort(contrib, order) if features is None
+             else torch.einsum("...nhw,...nc->...chw", contrib,
+                               features[order]))
+    return {"render": image, "radii": pp.radius, "invdepth": invdepth}
 
 
 def render(params: GaussianParams, camera: Camera, W: int, H: int,
-           scaling_modifier: float = 1.0, antialiasing: bool = False):
+           scaling_modifier: float = 1.0, antialiasing: bool = False,
+           features=None):
     """Render one view (or a batch of views) with the reference dispatch's
     [0,1] clamp. Returns dict(render, radii, depth, visibility_filter)."""
     cov6 = params.covariance(scaling_modifier)
     out = rasterize_dense(params.xyz, cov6, params.opacity, camera, W, H,
-                          antialiasing=antialiasing)
+                          antialiasing=antialiasing, features=features)
     out["render"] = torch.clamp(out["render"], 0.0, 1.0)
     out["depth"] = out.pop("invdepth")
     out["visibility_filter"] = out["radii"] > 0

@@ -1,7 +1,9 @@
-"""Process set-up for the CLI (counterpart of ``skelsplat_tpu/utils.py``)."""
+"""Process set-up for the CLI and small file helpers (counterpart of
+``skelsplat_tpu/utils.py``)."""
 
 from __future__ import annotations
 
+import os
 import random
 import sys
 from datetime import datetime
@@ -39,3 +41,22 @@ def safe_state(silent: bool) -> torch.Generator:
     random.seed(0)
     np.random.seed(0)
     return torch.Generator().manual_seed(0)
+
+
+def pil_to_array(pil_image, resolution=None):
+    """CHW float image in [0,1] from a PIL image (the reference does not
+    resize either)."""
+    arr = np.array(pil_image) / 255.0
+    if arr.ndim == 3:
+        return np.transpose(arr, (2, 0, 1))
+    return arr[None, ...]
+
+
+def mkdir_p(folder_path):
+    os.makedirs(folder_path, exist_ok=True)
+
+
+def searchForMaxIteration(folder):
+    """The largest N of the ``*_N`` entries in ``folder``."""
+    saved_iters = [int(fname.split("_")[-1]) for fname in os.listdir(folder)]
+    return max(saved_iters)

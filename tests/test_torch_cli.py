@@ -208,15 +208,6 @@ def test_early_stopped_scenes_save_under_their_stop_iteration(tree,
                                       ply.read_xyz(str(jrun / name)))
 
 
-@pytest.mark.parametrize("override", ["eval.image_metrics=true"])
-def test_unported_options_raise(tree, tmp_path, override):
-    args = ["--config-name", "h36m.yaml", "--device", "cpu",
-            *_overrides(tree, str(tmp_path / "run")), override]
-    with pytest.raises(SystemExit, match="ROADMAP.md §1 item 10"):
-        teval_cli.main(args)
-    assert not (tmp_path / "run" / "point_cloud").exists()
-
-
 @pytest.fixture
 def restore_debug_nans():
     """The JAX CLI's pipeline.debug turns jax_debug_nans on for the

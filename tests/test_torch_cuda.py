@@ -221,3 +221,42 @@ def test_issue_rate_kernel_matches_plain_version(card, op):
         assert roofline.launches["issue_rate"] == before + 1
         assert bool(torch.isfinite(got).all())
         assert torch.equal(got, ref), (op, chains)
+
+
+_EVAL_PRECISION = """
+import sys
+import torch
+import torch.nn.functional as F
+import skelsplat_tpu_torch.eval
+assert not torch.backends.cuda.matmul.allow_tf32
+assert not torch.backends.cudnn.allow_tf32
+assert torch.get_float32_matmul_precision() == "highest"
+loaded = [m for m in ("skelsplat_tpu_torch.ops.cuda_raster",
+                      "skelsplat_tpu_torch.engine.trainer") if m in sys.modules]
+assert not loaded, loaded
+# a convolution of LPIPS's size on the card against float64: full f32
+# rounds ~1e-7 of the scale, TF32's 10-bit mantissa ~1e-3
+g = torch.Generator(device="cuda").manual_seed(0)
+x = torch.rand((1, 64, 64, 64), device="cuda", generator=g)
+w = torch.rand((64, 64, 3, 3), device="cuda", generator=g) - 0.5
+y = F.conv2d(x, w, padding=1)
+ref = F.conv2d(x.double().cpu(), w.double().cpu(), padding=1)
+err = float((y.double().cpu() - ref).abs().max() / ref.abs().max())
+assert err < 1e-5, err
+print("full precision", err)
+"""
+
+
+@pytest.mark.cuda
+def test_eval_entry_point_runs_full_precision_convolutions(card):
+    """The eval path imports neither the kernel wrapper nor the trainer;
+    its SSIM and LPIPS convolutions must still run in full f32."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _EVAL_PRECISION], cwd=repo,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "full precision" in out.stdout

@@ -239,8 +239,18 @@ for name in names + ['chip_smoke']:
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'skelsplat_tpu'))
 assert not bad, bad
+# the port builds and loads its own copy of the PLY codec, never the JAX
+# package's native library
+from skelsplat_tpu_torch import native
+native.load()
+maps = open('/proc/self/maps').read()
+assert 'libskelsplat_native-' in maps
+assert '/skelsplat_tpu/native/' not in maps
 for name in ('config', 'data.loader', 'engine.driver', 'evaluation', 'train',
-             'eval', 'tools.make_synthetic_dataset', 'utils'):
+             'eval', 'tools.make_synthetic_dataset', 'utils', 'native',
+             'ops.ssim', 'ops.lpips', 'ops.image_metrics', 'ops.knn',
+             'ops.sh', 'ops.densify', 'data.colmap', 'data.camera_utils',
+             'data.scene_readers', 'renderer_registry', 'tools.bench_ssim'):
     assert 'skelsplat_tpu_torch.' + name in names, name
 print('isolated', len(names))
 """
@@ -281,6 +291,15 @@ def test_default_device_entry_points_raise_without_a_gpu(tmp_path):
         roofline.probe_issue_rate("mul")
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         trace_loss.main(["--seconds", "1"])
+    from skelsplat_tpu_torch.ops import lpips as tlpips
+    from skelsplat_tpu_torch.tools import bench_ssim
+
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        bench_ssim.main(["--shape", "1", "1", "16", "16"])
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        tlpips.LPIPS("alex")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        compat.GaussianModel()
 
     # the CLI and the data layer: a tiny synthetic H36M tree
     from skelsplat_tpu_torch import eval as teval
