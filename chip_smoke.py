@@ -115,6 +115,23 @@ Phases, each failing the script (nonzero exit) on any error:
              numpy reader, with both times; (d) a GaussianModel from a
              Scene: Adam steps on a dense render loss, densify_and_prune,
              reset_opacity and a PLY round trip.
+10. multichip — the (scenes × views) mesh of parallel/mesh.py at full
+             width (4 views at 1002/1000x1000, 17 joints, 500 iterations):
+             (a) multichip_optimize on a (1,1) mesh of one NCCL rank over
+             2 synthetic scenes, each scene's xyz and history bitwise
+             against optimize_scene_batch of the same scenes, exactly 125
+             K1 launches counted around the call, and its s/scene; (b) the
+             CLI as a user runs it: train.main with training.multichip=true
+             on 2 ranks spawned by parallel/launch.py that share the card
+             (gloo on CUDA tensors, mesh (1,2): each rank renders 2 views)
+             over phase 6's tree, its PLYs within MULTICHIP_ATOL_MM of
+             phase 6's serial sweep and its MPJPE within MULTICHIP_ATOL_MM
+             of phase 6's, rank 1 printing nothing, and its s/scene beside
+             phase 6's; (c) dryrun_multichip(2) on the card (a doctored
+             scene stops at iteration 8, renderer cuda against fused); (d)
+             tools/parity_study over 2 scenes at the h36m preset: dense,
+             fused and cuda through 500 iterations, every pair's largest
+             pose disagreement within PARITY_MM.
 
 The line before the last is {"kernels": [...], "off_path_kernels": [...]}:
 "kernels" lists the kernels the paths launched (K1 on the frame, with
@@ -123,8 +140,9 @@ its launches on the CLI sweep as "launches_cli", on the batched sweep as
 views as "*_v32"; on phase 8's Panoptic, Occlusion-Person and fusion runs
 as "launches_panoptic", "launches_occlusion_person" and
 "launches_fusion", and its time, plain time and bounds at Panoptic's and
-Occlusion-Person's shapes as "*_panoptic" and "*_occlusion_person"; K3 on
-the measurement path), "off_path_kernels" those
+Occlusion-Person's shapes as "*_panoptic" and "*_occlusion_person"; on
+phase 10 (a)'s mesh run as "launches_multichip"; K3 on the measurement
+path), "off_path_kernels" those
 the port holds that no path launches (K2, launches 0); the last line is
 {"ok": true, "device": {...}}. ``--profile`` adds a torch.profiler pass
 over one frame and over one batch of 8 frames (device time by kernel,
@@ -183,6 +201,16 @@ LPIPS_RTOL = 2e-4
 EXTRAS_DIR = SMOKE_DIR / "extras"
 SSIM_SHAPE = ("5", "1", "1080", "1920")   # the JAX tool's default
 COMPAT_STEPS = 3
+MULTICHIP_DIR = SMOKE_DIR / "multichip"
+MULTICHIP_SCENES = 2
+# phase 10 (b) against phase 6: the same sweep, its views split over two
+# ranks; the port's CLI is held to JAX's at this bar on the CPU
+MULTICHIP_ATOL_MM = 1e-3
+# phase 10 (d): three renderers through 500 iterations. The renderers'
+# ~1e-6 relative differences grow through Adam to 1.358e-4 mm at most
+# over 2 scenes on the H100 (dense vs fused); the bar is the top of the
+# 1e-4 to 1e-2 mm range predicted for it
+PARITY_MM = 1e-2
 # dg tolerance relative to the largest |dg| of the same view and gradient
 # component (px, py, a, b, c or opa) over the slots: both sides sum ~1e5
 # per-pixel f32 terms, the kernel by warp/tile trees and the plain version
@@ -1311,6 +1339,145 @@ def phase_extras(card: str):
             "densified_to": n_gaussians}
 
 
+def _mesh_vs_batch(card: str):
+    """Phase 10 (a): multichip_optimize on a (1,1) mesh of one NCCL rank
+    against optimize_scene_batch of the same scenes. Returns K1's
+    launches in the mesh run."""
+    import os
+
+    from skelsplat_tpu_torch import compat
+    from skelsplat_tpu_torch.core.cameras import stack_cameras
+    from skelsplat_tpu_torch.ops import cuda_raster as cr
+    from skelsplat_tpu_torch.parallel import launch
+    from skelsplat_tpu_torch.parallel.mesh import (make_mesh,
+                                                   multichip_optimize)
+    from skelsplat_tpu_torch.synthetic import synthetic_inputs
+
+    init, gt, p2d, cams_np = synthetic_inputs(
+        MULTICHIP_SCENES, W, H, n_views=N_VIEWS, seed=1,
+        widths=MIXED_WIDTHS)
+    cams_b = stack_cameras([compat.camera_from_numpy(cams_np, device="cpu")]
+                           * MULTICHIP_SCENES)
+    trainer = make_trainer(ITERATIONS, "cuda")
+    env = {"RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1",
+           "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(launch.free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        with launch.process_group("cuda") as dev:
+            backend = torch.distributed.get_backend()
+            mesh = make_mesh(1, 1, device_type=dev.type)
+            multichip_optimize(mesh, trainer, init, p2d, cams_b, gt)  # warm
+            torch.cuda.synchronize()
+            for k in cr.launches:
+                cr.launches[k] = 0
+            t0 = time.perf_counter()
+            params, hist = multichip_optimize(mesh, trainer, init, p2d,
+                                              cams_b, gt)
+            xyz = params.xyz.cpu().numpy()
+            dt = time.perf_counter() - t0
+            counts = dict(cr.launches)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    print(f"  (a) multichip_optimize, mesh (1,1) on {backend}: launches "
+          f"{counts}; {dt / MULTICHIP_SCENES:.6f} s/scene ({MULTICHIP_SCENES}"
+          f" scenes, {ITERATIONS} iterations, 4 views at {W}x{H}) on {card}",
+          flush=True)
+    assert backend == "nccl", backend
+    assert counts == {"raster_loss_grad": ITERATIONS // 4,
+                      "raster_loss": 0}, counts
+    pb, hb = trainer.optimize_scene_batch(init, p2d, cams_b, gt)
+    assert np.isfinite(xyz).all()
+    assert np.array_equal(xyz, pb.xyz.cpu().numpy())
+    for f in ("losses", "error", "error_rel", "stopped_at"):
+        assert torch.equal(getattr(hist, f), getattr(hb, f)), f
+    print("  (a) each scene's xyz and history bitwise equal to "
+          "optimize_scene_batch", flush=True)
+    return counts["raster_loss_grad"]
+
+
+def phase_multichip(card: str, cli_res, cli_s_per_scene: float):
+    """Phase 10: the mesh path. Returns (K1 launches of (a), the phase's
+    numbers)."""
+    import shutil
+
+    from skelsplat_tpu_torch import eval as eval_cli
+    from skelsplat_tpu_torch import train as train_cli
+    from skelsplat_tpu_torch.data import ply
+    from skelsplat_tpu_torch.parallel import launch
+    from skelsplat_tpu_torch.parallel.dryrun import dryrun_multichip
+    from skelsplat_tpu_torch.tools import parity_study
+
+    shutil.rmtree(MULTICHIP_DIR, ignore_errors=True)
+    launches = _mesh_vs_batch(card)
+
+    # (b) the CLI on two ranks sharing the card, over phase 6's tree
+    root = SMOKE_DIR / "synth-h36m"
+    run_dir, ranks = MULTICHIP_DIR / "run", MULTICHIP_DIR / "ranks"
+    overrides = [f"dataset.data_root={root}",
+                 f"dataset.end_scene_id={CLI_SCENES}"]
+    t0 = time.perf_counter()
+    launch.spawn(2, train_cli.main,
+                 ["--config-name", "h36m.yaml", *overrides,
+                  "training.multichip=true", f"hydra.run.dir={run_dir}"],
+                 rank_dir=str(ranks))
+    wall = time.perf_counter() - t0
+    assert (ranks / "rank1.stdout").read_text() == "", "rank 1 printed"
+    summary = json.loads((run_dir / "train_summary.json").read_text())
+    assert set(summary) == {"scenes", "mean_seconds_per_scene"}, summary
+    serial = SMOKE_DIR / "run" / "point_cloud" / f"iteration_{ITERATIONS}"
+    mesh_pc = run_dir / "point_cloud" / f"iteration_{ITERATIONS}"
+    names = sorted(p.name for p in serial.glob("*.ply"))
+    assert names and names == sorted(p.name for p in mesh_pc.glob("*.ply"))
+    d_xyz = max(float(np.abs(ply.read_xyz(str(mesh_pc / n))
+                             - ply.read_xyz(str(serial / n))).max())
+                for n in names)
+    bitwise = all(np.array_equal(ply.read_xyz(str(mesh_pc / n)),
+                                 ply.read_xyz(str(serial / n)))
+                  for n in names)
+    res = eval_cli.main(["--config-name", "h36m.yaml", *overrides,
+                         f"eval.output_path={run_dir}"])[ITERATIONS]
+    d_mpjpe = abs(res["absolute"] - cli_res["absolute"])
+    s_mesh = summary["mean_seconds_per_scene"]
+    print(f"  (b) train.main on 2 ranks (backend "
+          f"{launch.backend_for('cuda', 2)}, mesh (1,2)): {len(names)} "
+          f"scenes; largest |dxyz| against phase 6 {d_xyz:.3g} mm (bitwise "
+          f"equal: {bitwise}); MPJPE {res['absolute']:.4f} mm against phase "
+          f"6's {cli_res['absolute']:.4f} (|d| {d_mpjpe:.3g} mm); "
+          f"{s_mesh:.6f} s/scene (mean_seconds_per_scene) against phase 6's "
+          f"{cli_s_per_scene:.6f}, {wall:.1f} s for the 2-rank command with "
+          f"its start, on {card}", flush=True)
+    assert d_xyz <= MULTICHIP_ATOL_MM and d_mpjpe <= MULTICHIP_ATOL_MM
+
+    # (c) the dry run on the card
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(2, device="cuda")
+    print(f"  (c) dryrun_multichip(2) on the card: {json.dumps(dry)}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (d) the renderers through a full optimization
+    t0 = time.perf_counter()
+    report = parity_study.main(["--scenes", str(MULTICHIP_SCENES),
+                                "--preset", "h36m", "--device", "cuda",
+                                "--out", str(MULTICHIP_DIR / "parity")])
+    worst = max(r["max_disagreement_mm"] for r in report["pairs"].values())
+    print(f"  (d) parity_study, {MULTICHIP_SCENES} scenes at the h36m "
+          f"preset: largest pairwise disagreement {worst:.6g} mm "
+          f"({json.dumps(report['pairs'])}); s per renderer "
+          f"{ {k: round(v['seconds'], 3) for k, v in report['renderers'].items()} }"
+          f", {time.perf_counter() - t0:.1f} s", flush=True)
+    assert np.isfinite(worst) and worst <= PARITY_MM, report["pairs"]
+    return launches, {"mesh_s_per_scene": s_mesh,
+                      "serial_s_per_scene": cli_s_per_scene,
+                      "cli_d_xyz_mm": d_xyz, "cli_d_mpjpe_mm": d_mpjpe,
+                      "dryrun": dry, "parity_worst_mm": worst}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1325,7 +1492,7 @@ def main():
 
     from skelsplat_tpu_torch.tools.timing import card_line
 
-    print("[1/9] build", flush=True)
+    print("[1/10] build", flush=True)
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.load_library()
@@ -1348,10 +1515,10 @@ def main():
     print(f"  card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
 
-    print("[2/9] kernels against their plain versions", flush=True)
+    print("[2/10] kernels against their plain versions", flush=True)
     rows, timed, timed_b = phase_kernels()
 
-    print("[3/9] path: one H36M frame through SceneTrainer.optimize_scene",
+    print("[3/10] path: one H36M frame through SceneTrainer.optimize_scene",
           flush=True)
     counts, s_per_frame, (e0, e1) = phase_path(args.profile)
     for row in rows:
@@ -1360,10 +1527,10 @@ def main():
           f"{ITERATIONS} iterations, 4 views at {W}x{H}) on {card}",
           flush=True)
 
-    print("[4/9] renderer agreement: cuda vs fused", flush=True)
+    print("[4/10] renderer agreement: cuda vs fused", flush=True)
     phase_agree()
 
-    print("[5/9] measurement path: K3, roofline, kernel_probe, "
+    print("[5/10] measurement path: K3, roofline, kernel_probe, "
           "trace_summary", flush=True)
     k1, k2 = rows
     k3_row, k1_bound, k2_bound, k1_bound_b = phase_measure(
@@ -1374,33 +1541,41 @@ def main():
         k1_bound_b
     rows.append(k3_row)
 
-    print("[6/9] cli: train.main and eval.main over a synthetic H36M tree",
+    print("[6/10] cli: train.main and eval.main over a synthetic H36M tree",
           flush=True)
-    cli_counts, s_per_scene, _ = phase_cli()
+    cli_counts, s_per_scene, cli_res = phase_cli()
     k1["launches_cli"] = cli_counts["raster_loss_grad"]
     print(f"  {s_per_scene:.6f} s/scene (train_summary.json "
           f"mean_seconds_per_scene; {CLI_SCENES} scenes, {ITERATIONS} "
           f"iterations, 4 views at {W}x{H}, save_images) on {card}",
           flush=True)
 
-    print("[7/9] batch: train.main at scene_batch 1 and 8 over a 10-scene "
+    print("[7/10] batch: train.main at scene_batch 1 and 8 over a 10-scene "
           "synthetic H36M tree", flush=True)
     batch_counts, _, _ = phase_batch(card, args.profile)
     k1["launches_batch"] = batch_counts["raster_loss_grad"]
 
-    print("[8/9] options: Panoptic and Occlusion-Person sweeps, the dense "
+    print("[8/10] options: Panoptic and Occlusion-Person sweeps, the dense "
           "soft-argmax path, confidence-weighted fusion, triangulation, "
           "render", flush=True)
     fields, k1_err = phase_options(card)
     k1.update(fields)
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_err)
 
-    print("[9/9] extras: eval.image_metrics (SSIM, LPIPS) card vs CPU, "
+    print("[9/10] extras: eval.image_metrics (SSIM, LPIPS) card vs CPU, "
           "bench_ssim, the native PLY codec, GaussianModel", flush=True)
     t0 = time.perf_counter()
     extras = phase_extras(card)
     print(f"  phase 9: {time.perf_counter() - t0:.1f} s; "
           f"{json.dumps(extras)}", flush=True)
+
+    print("[10/10] multichip: multichip_optimize on NCCL against the batch, "
+          "the CLI on 2 ranks, dryrun_multichip, parity_study", flush=True)
+    t0 = time.perf_counter()
+    k1["launches_multichip"], multichip = phase_multichip(card, cli_res,
+                                                          s_per_scene)
+    print(f"  phase 10: {time.perf_counter() - t0:.1f} s; "
+          f"{json.dumps(multichip)}", flush=True)
 
     print(card)
     print(json.dumps({

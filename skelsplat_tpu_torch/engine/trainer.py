@@ -103,6 +103,13 @@ def _last_visit_rows(acc_gx, grads_xyz, idxs, m_star):
     return torch.where((j_last >= 0)[..., None, None], rows, acc_gx)
 
 
+def visit_order(K: int, A: int, nviews: int, device) -> torch.Tensor:
+    """(K, A) int64: the reference visits views (k·A + j) mod V during
+    macro step k, in every scene."""
+    ks = torch.arange(K, dtype=torch.int64, device=device)
+    return (ks[:, None] * A + torch.arange(A, device=device)) % nviews
+
+
 def view_fusion_fn(view_fusion: str):
     """The xyz fusion over the view axis (dim −3 of (…,V,N,3)): "mean", the
     reference's plain mean, or "confidence_weighted", each view weighted
@@ -388,14 +395,17 @@ class SceneTrainer:
                                  for g in grads)))
 
     def host_inputs(self, initial_pose, poses_2d, cameras: Camera,
-                    pose_3d_gt=None, drop_mask=None):
+                    pose_3d_gt=None, drop_mask=None, drop_generator=None):
         """Host-side inputs of one scene: dtypes, the noise injection
         (``settings.std_dev_noise``, from a seed-0 numpy generator made
-        anew for every scene), the dropout mask (a host-drawn (V,N) bool
-        mask, used when ``settings.dropout``) and the scene extent (the
-        spatial LR scale) from the camera centres. Pass ``cameras`` on the
-        CPU, as the driver does, and no device is involved. Returns numpy
-        (initial_pose, poses_2d, pose_3d_gt, drop_mask) and the extent."""
+        anew for every scene), the dropout mask (used when
+        ``settings.dropout``: the given (V,N) bool ``drop_mask``, else one
+        drawn from ``drop_generator`` by ``heatmaps.dropout_masks``) and
+        the scene extent (the spatial LR scale) from the camera centres.
+        Pass ``cameras`` on the CPU, as the driver does, and no device is
+        involved. Returns (initial_pose, poses_2d, pose_3d_gt, drop_mask)
+        and the extent; the mask drawn from a generator lies on the
+        generator's device, the rest is numpy."""
         initial_pose = np.asarray(initial_pose, dtype=np.float32)
         if self.settings.std_dev_noise > 0.0:
             rng = np.random.default_rng(seed=0)
@@ -409,6 +419,8 @@ class SceneTrainer:
         nviews, n = poses_2d.shape[0], poses_2d.shape[1]
         if self.settings.dropout and drop_mask is not None:
             drop_mask = np.asarray(drop_mask, dtype=bool)
+        elif self.settings.dropout and drop_generator is not None:
+            drop_mask = hm.dropout_masks(drop_generator, nviews, n)
         else:
             drop_mask = np.zeros((nviews, n), dtype=bool)
         extent = extent_from_centers(cameras.cam_center.detach().cpu().numpy())
@@ -418,7 +430,8 @@ class SceneTrainer:
     def optimize_scene(self, initial_pose, poses_2d, cameras: Camera,
                        pose_3d_gt=None, drop_mask=None,
                        checkpoint_iterations=(), checkpoint_fn=None,
-                       hist8_init=None, lean: bool = False):
+                       hist8_init=None, lean: bool = False,
+                       drop_generator=None):
         """Run the full optimization of one scene.
 
         initial_pose (N,3); poses_2d (V,N,2+); cameras a batched Camera
@@ -434,19 +447,24 @@ class SceneTrainer:
         the early-stop window with the previous scene's
         ``MacroHistory.hist8``: the reference's stopper is made once per
         sweep, so its 8-loss window spans scene boundaries.
+        ``drop_generator`` draws the dropout mask where ``drop_mask`` is
+        not given (``host_inputs``).
         """
         dev = self.device
         init_np, p2d_np, gt_np, drop_np, extent = self.host_inputs(
-            initial_pose, poses_2d, cameras, pose_3d_gt, drop_mask)
+            initial_pose, poses_2d, cameras, pose_3d_gt, drop_mask,
+            drop_generator)
         extent = torch.full((), extent, dtype=torch.float32, device=dev)
         cameras = cameras.map(lambda x: x.to(dev))
         poses_2d, pose_3d_gt, drop_mask = (
             torch.as_tensor(a, device=dev) for a in (p2d_np, gt_np, drop_np))
         params, view_aux = self._prepare(init_np, poses_2d, cameras,
                                          drop_mask)
-        return self._run(params, view_aux, cameras, poses_2d, pose_3d_gt,
-                         extent, checkpoint_iterations, checkpoint_fn,
-                         hist8_init, lean)
+        nviews = poses_2d.shape[0]
+        return self._run(params, self._visited_grads(cameras, view_aux,
+                                                     poses_2d, 1, nviews),
+                         nviews, pose_3d_gt, extent, checkpoint_iterations,
+                         checkpoint_fn, hist8_init, lean)
 
     def optimize_scene_batch(self, initial_b, poses_2d_b, cameras_b: Camera,
                              pose_3d_gt_b=None, lean: bool = False):
@@ -484,23 +502,48 @@ class SceneTrainer:
         drop_b = torch.zeros((B, nviews, n), dtype=torch.bool, device=dev)
         params, view_aux = self._prepare_batch(initial_b, poses_2d_b,
                                                cameras_b, drop_b)
-        return self._run(params, view_aux, flatten_scenes(cameras_b),
-                         poses_2d_b.reshape((B * nviews,) + (n, 2)),
-                         pose_3d_gt_b, extent, lean=lean)
+        view_grads = self._visited_grads(
+            flatten_scenes(cameras_b), view_aux,
+            poses_2d_b.reshape((B * nviews,) + (n, 2)), B, nviews)
+        return self._run(params, view_grads, nviews, pose_3d_gt_b, extent,
+                         lean=lean)
 
-    def _run(self, params, view_aux, cameras, poses_2d, pose_3d_gt, extent,
+    def _visited_grads(self, cameras, view_aux, poses_2d, n_scenes: int,
+                       nviews: int):
+        """``view_grads`` of ``_run`` for scenes whose views all live here:
+        ``cameras``, ``view_aux`` and ``poses_2d`` hold every scene's
+        ``nviews`` views one scene after another, and each macro step
+        renders the A visited views of every scene, in visit order."""
+        A = self.settings.accumulation_steps
+        if A == nviews:
+            return lambda k, params: self._per_view_grads(
+                params, cameras, view_aux, poses_2d, A)
+        idx_all = visit_order(self.n_macro, A, nviews, self.device)
+        # flat_all[k] indexes macro step k's visits in the scenes' flat views
+        flat_all = (torch.arange(n_scenes, device=self.device)[None, :, None]
+                    * nviews + idx_all[:, None, :]).reshape(self.n_macro,
+                                                            n_scenes * A)
+
+        def grads(k, params):
+            flat = flat_all[k]
+            aux_k = (view_aux[flat] if self.renderer == "dense"
+                     else view_aux.take(flat))
+            return self._per_view_grads(params, cameras.take(flat), aux_k,
+                                        poses_2d[flat], A)
+        return grads
+
+    def _run(self, params, view_grads, nviews: int, pose_3d_gt, extent,
              checkpoint_iterations=(), checkpoint_fn=None, hist8_init=None,
              lean: bool = False):
         """The macro loop over prepared state, for one scene or a batch:
         ``params``, ``pose_3d_gt`` and ``extent`` carry the scene axes (none
-        for one scene, (B,) for a batch), while ``cameras``, ``view_aux``
-        and ``poses_2d`` hold every scene's V views one scene after
-        another."""
+        for one scene, (B,) for a batch). ``view_grads(k, params)`` gives
+        macro step ``k``'s (losses (…,A), grads (…,A,N,·)) of the visited
+        views in visit order (``_visited_grads``, or the mesh's gather in
+        ``parallel/mesh.py``); ``nviews`` is each scene's view count."""
         dev = self.device
         lead = tuple(params.xyz.shape[:-2])
-        n_scenes = int(np.prod(lead, dtype=np.int64))
         A = self.settings.accumulation_steps
-        nviews = poses_2d.shape[0] // n_scenes
         general = A != nviews
         use_stop = self.settings.early_stopping == "opt_early_stopping"
         carry = init_macro_carry(params, self.adam.init(params), nviews,
@@ -510,11 +553,7 @@ class SceneTrainer:
         saves = {min(max(it // A, 0), K) for it in checkpoint_iterations}
         saves.discard(0)
         ks = torch.arange(K, dtype=torch.int64, device=dev)
-        # the reference visits views (k·A + j) mod V during macro step k, in
-        # every scene; flat_all[k] indexes them in the scenes' flat views
-        idx_all = (ks[:, None] * A + torch.arange(A, device=dev)) % nviews
-        flat_all = (torch.arange(n_scenes, device=dev)[None, :, None] * nviews
-                    + idx_all[:, None, :]).reshape(K, n_scenes * A)
+        idx_all = visit_order(K, A, nviews, dev)
         rows = 1 if lean else K
         losses_h = torch.zeros(lead + (rows, A), dtype=torch.float32,
                                device=dev)
@@ -528,16 +567,7 @@ class SceneTrainer:
                                     device=dev)
 
         for k in range(K):
-            if general:
-                flat = flat_all[k]
-                cams_k = cameras.take(flat)
-                aux_k = (view_aux[flat] if self.renderer == "dense"
-                         else view_aux.take(flat))
-                p2d_k = poses_2d[flat]
-            else:
-                cams_k, aux_k, p2d_k = cameras, view_aux, poses_2d
-            losses_v, grads_v = self._per_view_grads(
-                carry[0], cams_k, aux_k, p2d_k, A)
+            losses_v, grads_v = view_grads(k, carry[0])
             carry, rec = compose_macro(
                 self.adam, A, use_stop, general, carry, ks[k], losses_v,
                 grads_v, idx_all[k], pose_3d_gt, extent,

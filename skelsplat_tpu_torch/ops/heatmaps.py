@@ -160,16 +160,76 @@ def eval_heatmaps(spec: HeatmapSpec, W: int, H: int) -> torch.Tensor:
     return torch.where(inside, val, torch.zeros_like(val))
 
 
+def eval_heatmap_channel(spec: HeatmapSpec, v, j, ys, xs, W: int, H: int):
+    """Channel (v, j) of the normalized GT heatmap at integer pixel rows
+    ``ys`` and columns ``xs`` (broadcastable tensors), zero outside the
+    view's true image."""
+    p1 = _profile(ys, spec.y0[v, j], spec.sigma1[v, j], spec.r1[v, j],
+                  spec.sum1[v, j], spec.height[v, j])
+    p2 = _profile(xs, spec.x0[v, j], spec.sigma2[v, j], spec.r2[v, j],
+                  spec.sum2[v, j], spec.width[v, j])
+    raw = spec.amp[v, j] * p1 * p2
+    val = (raw - spec.mn[v, j]) / (spec.mx[v, j] - spec.mn[v, j] + NORM_EPS)
+    inside = (ys < spec.height[v, j]) & (xs < spec.width[v, j])
+    return torch.where(inside, val, torch.zeros_like(val))
+
+
+def dropout_masks(generator: torch.Generator, n_views: int,
+                  n_joints: int) -> torch.Tensor:
+    """One scene's joint-dropout mask on the generator's device: 3 random
+    cameras × 3 random joints zeroed, drawn by two ``torch.randint`` calls
+    on ``generator``. The camera draw's range is 4 whatever ``n_views``, as
+    the reference's is. Returns an (n_views, n_joints) bool tensor."""
+    dev = generator.device
+    cams = torch.randint(4, (3,), generator=generator, device=dev)
+    joints = torch.randint(n_joints, (3,), generator=generator, device=dev)
+    cam_hit = torch.any(
+        torch.arange(n_views, device=dev)[:, None] == cams[None, :], dim=-1)
+    joint_hit = torch.any(
+        torch.arange(n_joints, device=dev)[:, None] == joints[None, :], dim=-1)
+    return cam_hit[:, None] & joint_hit[None, :]
+
+
 def dropout_masks_torch(n_views: int, n_joints: int,
                         generator: torch.Generator) -> np.ndarray:
-    """One scene's joint-dropout mask: 3 random cameras × 3 random joints
-    zeroed, drawn by two ``torch.randint`` calls on ``generator`` (a CPU
-    generator the caller seeds to 0 and draws from one scene at a time, in
-    dataset order). The camera draw's range is 4 whatever ``n_views``, as
-    the reference's is. Returns a host (n_views, n_joints) bool mask."""
-    cams = torch.randint(4, (3,), generator=generator).numpy()
-    joints = torch.randint(n_joints, (3,), generator=generator).numpy()
-    cam_hit = np.any(np.arange(n_views)[:, None] == cams[None, :], axis=-1)
-    joint_hit = np.any(
-        np.arange(n_joints)[:, None] == joints[None, :], axis=-1)
-    return cam_hit[:, None] & joint_hit[None, :]
+    """``dropout_masks`` drawn on a CPU generator (the driver's, which the
+    caller seeds to 0 and draws from one scene at a time, in dataset
+    order), as a host (n_views, n_joints) bool array."""
+    return dropout_masks(generator, n_views, n_joints).numpy()
+
+
+def generate_heatmaps_scipy(xyz, cov6, poses_2d, cameras: Camera,
+                            W: int, H: int, drop_mask=None) -> np.ndarray:
+    """The reference's GT heatmaps as it builds them, the oracle of the
+    closed form: a 255-impulse at each detection blurred by
+    ``scipy.ndimage.gaussian_filter`` with the EWA sigmas, min-max
+    normalized per channel over the view's true image. (V,N,H,W) float32
+    on the host; ``xyz`` (N,3) and ``cov6`` (N,6) tensors on the cameras'
+    device."""
+    from scipy.ndimage import gaussian_filter
+
+    with torch.no_grad():
+        s1, s2 = heatmap_sigmas_for_views(xyz, cov6, cameras)
+    s1, s2 = s1.cpu().numpy(), s2.cpu().numpy()
+    poses_2d = np.asarray(torch.as_tensor(poses_2d).cpu())
+    widths = cameras.width.cpu().numpy().astype(int).reshape(-1)
+    heights = cameras.height.cpu().numpy().astype(int).reshape(-1)
+    if drop_mask is not None:
+        drop_mask = np.asarray(torch.as_tensor(drop_mask).cpu())
+    V, N = s1.shape
+    out = np.zeros((V, N, H, W), dtype=np.float32)
+    for v in range(V):
+        w_v, h_v = widths[v], heights[v]
+        x0 = np.clip(np.trunc(poses_2d[v, :, 0]).astype(np.int64), 0, w_v - 1)
+        y0 = np.clip(np.trunc(poses_2d[v, :, 1]).astype(np.int64), 0, h_v - 1)
+        hm_v = np.zeros((N, h_v, w_v), dtype=np.float32)
+        for j in range(N):
+            if drop_mask is not None and drop_mask[v, j]:
+                continue
+            img = np.zeros((h_v, w_v), dtype=np.float32)
+            img[y0[j], x0[j]] = AMPLITUDE
+            hm_v[j] = gaussian_filter(img, sigma=[s1[v, j], s2[v, j]])
+        mn = hm_v.reshape(N, -1).min(axis=-1)[:, None, None]
+        mx = hm_v.reshape(N, -1).max(axis=-1)[:, None, None]
+        out[v, :, :h_v, :w_v] = (hm_v - mn) / (mx - mn + NORM_EPS)
+    return out

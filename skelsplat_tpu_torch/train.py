@@ -8,6 +8,16 @@ e.g. ``... --config-name h36m.yaml dataset.end_scene_id=10``. The configs
 resolve against ``skelsplat_tpu_torch/config/configs``. Outputs go to the
 run dir ``experiments/<ds>/<date>/<time>`` (``hydra.run.dir``). It runs on
 the GPU unless ``--device cpu`` is given.
+
+On several GPUs, one process per card under torchrun:
+
+    torchrun --nproc_per_node=K -m skelsplat_tpu_torch.train \
+        --config-name h36m.yaml training.multichip=true [...]
+
+shards the sweep over a (scenes × views) mesh of the K ranks
+(``parallel/mesh.py``; NCCL when each rank has a card of its own, gloo
+otherwise, ``parallel/launch.py``). Rank 0 prints and writes the run;
+the other ranks print and write nothing.
 """
 
 import argparse
@@ -28,42 +38,45 @@ def main(argv=None):
                         help="hydra-style group.key=value overrides")
     args = parser.parse_args(argv)
 
-    from skelsplat_tpu_torch import resolve_device
     from skelsplat_tpu_torch.config import ConfigHandler, load_config
     from skelsplat_tpu_torch.data.loader import DataLoader
     from skelsplat_tpu_torch.engine import driver
+    from skelsplat_tpu_torch.parallel import launch
     from skelsplat_tpu_torch.utils import safe_state
 
-    device = resolve_device(args.device)
-    cfg = load_config(args.config_name, args.overrides,
-                      config_dir=args.config_path)
-    config = ConfigHandler(cfg)
-    output_dir = config.hydra_out
+    with launch.process_group(args.device) as device:
+        rank0 = launch.rank() == 0
+        cfg = load_config(args.config_name, args.overrides,
+                          config_dir=args.config_path, make_run_dir=rank0)
+        config = ConfigHandler(cfg)
+        output_dir = config.hydra_out
 
-    dataset = cfg.dataset
-    train = cfg.training
+        dataset = cfg.dataset
+        train = cfg.training
 
-    print(output_dir)
-    logging.basicConfig(level=logging.INFO)
-    log = logging.getLogger(__name__)
+        if rank0:
+            print(output_dir)
+        logging.basicConfig(level=logging.INFO if rank0 else logging.ERROR)
+        log = logging.getLogger(__name__)
 
-    if train.dropout:
-        print("Dropping out some gt joints during training")
+        if train.dropout and rank0:
+            print("Dropping out some gt joints during training")
 
-    initial_guess_path = os.path.join(dataset.data_root, "initial_guess",
-                                      dataset.initial_guess)
-    poses_2d_path = os.path.join(dataset.data_root, "2d_" + dataset.poses_2d)
+        initial_guess_path = os.path.join(dataset.data_root, "initial_guess",
+                                          dataset.initial_guess)
+        poses_2d_path = os.path.join(dataset.data_root,
+                                     "2d_" + dataset.poses_2d)
 
-    dataset_loader = DataLoader(
-        dataset.data_root, initial_guess_path, poses_2d_path,
-        frame_step=dataset.frame_step, start_id=dataset.start_scene_id,
-        end_id=dataset.end_scene_id, nviews=dataset.nviews)
+        dataset_loader = DataLoader(
+            dataset.data_root, initial_guess_path, poses_2d_path,
+            frame_step=dataset.frame_step, start_id=dataset.start_scene_id,
+            end_id=dataset.end_scene_id, nviews=dataset.nviews)
 
-    generator = safe_state(train.quiet)
-    return driver.training(dataset, cfg.model, cfg.optimization,
-                           cfg.pipeline, cfg.debug, train, dataset_loader,
-                           output_dir, generator, log, device=device)
-
+        generator = safe_state(train.quiet or not rank0)
+        return driver.training(dataset, cfg.model, cfg.optimization,
+                               cfg.pipeline, cfg.debug, train,
+                               dataset_loader, output_dir, generator, log,
+                               device=device)
 
 if __name__ == "__main__":
     main()

@@ -172,6 +172,63 @@ def test_batched_macro_steps_make_no_host_sync(card):
     assert syncs[8] == syncs[40], syncs
 
 
+@pytest.fixture
+def nccl_world_of_one(card, monkeypatch):
+    """A process group of this process alone on NCCL (torchrun's
+    environment for one rank), destroyed after the test."""
+    from skelsplat_tpu_torch.parallel import launch
+
+    for k, v in {"RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1",
+                 "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
+                 "MASTER_PORT": str(launch.free_port())}.items():
+        monkeypatch.setenv(k, v)
+    with launch.process_group("cuda") as dev:
+        assert torch.distributed.get_backend() == "nccl"
+        yield dev
+
+
+@pytest.mark.cuda
+def test_mesh_on_nccl_makes_no_host_sync(nccl_world_of_one):
+    """The mesh's gather (an NCCL all_reduce of the summaries' bits) leaves
+    them bitwise as they were and makes no host sync, however many run;
+    multichip_optimize (general accumulation, 3 scenes) waits on the
+    device as often for 2 macro steps as for 10."""
+    from skelsplat_tpu_torch.core.cameras import stack_cameras
+    from skelsplat_tpu_torch.core.gaussians import SkeletonModel
+    from skelsplat_tpu_torch.engine.optim import OptConfig
+    from skelsplat_tpu_torch.engine.trainer import SceneTrainer, TrainSettings
+    from skelsplat_tpu_torch.parallel.mesh import (_gather_blocks, make_mesh,
+                                                   multichip_optimize)
+
+    parts = [torch.randn(3, 4, device="cuda"),
+             torch.randn(3, 4, 17, 3, device="cuda"),
+             torch.tensor([-0.0, 0.0, 1.0], device="cuda").reshape(3, 1),
+             torch.arange(3, device="cuda").reshape(3, 1)]
+    out = _gather_blocks(parts, 1, 0, 1, None)
+    for a, b in zip(out, parts):    # bits, so -0.0 must stay -0.0
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    torch.cuda.synchronize()
+    syncs = {n: _count_syncs(lambda: [_gather_blocks(parts, 1, 0, 1, None)
+                                      for _ in range(n)])
+             for n in (2, 10)}
+    assert syncs[2] == syncs[10], syncs
+
+    init, gt, p2d, cams_np = synthetic_inputs(3, W, H)
+    cams_b = stack_cameras([compat.camera_from_numpy(cams_np, device="cpu")]
+                           * 3)
+    mesh = make_mesh(1, 1, device_type="cuda")
+    syncs = {}
+    for iters in (8, 40):
+        trainer = SceneTrainer(SkeletonModel("h36m", 17), OptConfig(iters),
+                               TrainSettings(accumulation_steps=2), W, H,
+                               renderer="cuda")
+        multichip_optimize(mesh, trainer, init, p2d, cams_b, gt)  # warm-up
+        torch.cuda.synchronize()
+        syncs[iters] = _count_syncs(lambda: multichip_optimize(
+            mesh, trainer, init, p2d, cams_b, gt))
+    assert syncs[8] == syncs[40], syncs
+
+
 @pytest.mark.cuda
 def test_result_copy_returns_batch_k_while_batch_k1_runs(card):
     """The batched sweep's result copy of batch k (``engine/driver.py``'s
