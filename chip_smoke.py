@@ -132,6 +132,26 @@ Phases, each failing the script (nonzero exit) on any error:
              tools/parity_study over 2 scenes at the h36m preset: dense,
              fused and cuda through 500 iterations, every pair's largest
              pose disagreement within PARITY_MM.
+11. tools  — the data-preparation path: (a) the H36M test set at its
+             size (S9 and S11, 60 activities, 2,181 frames x 4 cameras,
+             seeded synthetic motions seen by phase 6's rig): one dump of
+             monocular 3D predictions (the GT plus noise and a per-camera
+             offset) and 2D detections through
+             ``tools.h36m.preprocess_metrabs_predictions``, then
+             ``tools.h36m.compute_initial_guess`` (main(argv)) on the card
+             (twice) and on the CPU: every fused pose within FUSE_ATOL_MM,
+             the tool's wall ms and its fuse_poses ms on each, and the
+             fused MPJPE below the mean single-camera MPJPE; (b) on a copy
+             of phase 6's tree, the same kind of predictions fused on the
+             card, then train.main from those guesses
+             (dataset.initial_guess=metrabs_resnet, TOOLS_SCENES scenes,
+             h36m.yaml otherwise unchanged) and eval.main: exactly 125 K1
+             launches a scene, counted around train.main alone, and an
+             MPJPE below the fused guesses'; (c) phase 8 (e)'s
+             triangulation clouds through
+             ``tools.preprocess_triang_initial_guess``: every frame
+             bitwise one cloud's xyz, each cloud once, sorted within its
+             file.
 
 The line before the last is {"kernels": [...], "off_path_kernels": [...]}:
 "kernels" lists the kernels the paths launched (K1 on the frame, with
@@ -141,8 +161,8 @@ views as "*_v32"; on phase 8's Panoptic, Occlusion-Person and fusion runs
 as "launches_panoptic", "launches_occlusion_person" and
 "launches_fusion", and its time, plain time and bounds at Panoptic's and
 Occlusion-Person's shapes as "*_panoptic" and "*_occlusion_person"; on
-phase 10 (a)'s mesh run as "launches_multichip"; K3 on the measurement
-path), "off_path_kernels" those
+phase 10 (a)'s mesh run as "launches_multichip"; on phase 11 (b)'s sweep
+as "launches_tools"; K3 on the measurement path), "off_path_kernels" those
 the port holds that no path launches (K2, launches 0); the last line is
 {"ok": true, "device": {...}}. ``--profile`` adds a torch.profiler pass
 over one frame and over one batch of 8 frames (device time by kernel,
@@ -211,6 +231,15 @@ MULTICHIP_ATOL_MM = 1e-3
 # over 2 scenes on the H100 (dense vs fused); the bar is the top of the
 # 1e-4 to 1e-2 mm range predicted for it
 PARITY_MM = 1e-2
+TOOLS_DIR = SMOKE_DIR / "tools"
+TOOLS_SCENES = 2
+# phase 11 (a, b): per-camera monocular predictions, the GT plus noise and a
+# per-camera offset (each N(0, MONO_SIGMA_MM) per coordinate: ~36 mm from
+# the GT per joint)
+MONO_SIGMA_MM = 16.0
+# the fusion in float64, card against CPU: poses of thousands of mm round
+# at ~1e-13 mm, so any larger difference is an error of the port
+FUSE_ATOL_MM = 1e-9
 # dg tolerance relative to the largest |dg| of the same view and gradient
 # component (px, py, a, b, c or opa) over the slots: both sides sum ~1e5
 # per-pixel f32 terms, the kernel by warp/tile trees and the plain version
@@ -1478,6 +1507,254 @@ def phase_multichip(card: str, cli_res, cli_s_per_scene: float):
                       "dryrun": dry, "parity_worst_mm": worst}
 
 
+def _fusion_inputs(root):
+    """Phase 11 (b): per-camera monocular 3D predictions and 2D detections
+    beside phase 6's tree's GT, as a user's detectors would leave them.
+    Returns the mean single-camera MPJPE (mm)."""
+    import shutil
+
+    from skelsplat_tpu_torch.data.cameras_io import H36M_CAMERAS
+
+    rng = np.random.default_rng(0)
+    shutil.copytree(root / "initial_guess" / "cameras",
+                    root / "3d_gt" / "cameras")
+    errs = []
+    for act_dir in sorted((root / "initial_guess" / "metrabs").glob("*/*")):
+        subject, act = act_dir.parent.name, act_dir.name
+        gt = np.load(root / "3d_gt" / subject / act / "poses.npz")[
+            "poses"][::64]
+        for cam in H36M_CAMERAS:
+            mono = (gt + rng.normal(0, MONO_SIGMA_MM, gt.shape)
+                    + rng.normal(0, MONO_SIGMA_MM, 3))
+            errs.append(np.linalg.norm(mono - gt, axis=-1).mean(axis=-1))
+            for tree, key, arr in (
+                    ("3d_metrabs_mono", "poses3d", mono),
+                    ("2d_resnet", "poses2d", np.load(
+                        root / "2d_metrabs" / subject / act / cam
+                        / "poses.npz")["poses"])):
+                d = root / tree / subject / act / cam
+                d.mkdir(parents=True)
+                np.savez(d / "poses.npz", **{key: arr})
+    return float(np.mean(np.concatenate(errs)))
+
+
+def _test_set_inputs(root):
+    """Phase 11 (a): the H36M test set at its size, as MeTRAbs leaves it:
+    S9 and S11 with the 60 activities and frame counts of
+    preprocess_metrabs_predictions (2,181 frames), each activity a seeded
+    smooth motion seen by phase 6's rig. One dump of monocular 3D
+    predictions (the GT plus noise and a per-camera offset) and per-activity
+    2D detections (the GT's projections plus 2 px of noise) go through
+    preprocess_metrabs_predictions into 3d_metrabs_mono and 2d_metrabs.
+    Returns ({subject/activity/poses.npz: GT}, the mean single-camera
+    MPJPE in mm)."""
+    import contextlib
+    import io
+    import shutil
+
+    from skelsplat_tpu_torch.data.cameras_io import H36M_CAMERAS
+    from skelsplat_tpu_torch.tools import make_synthetic_dataset as synth
+    from skelsplat_tpu_torch.tools.h36m import \
+        preprocess_metrabs_predictions as metrabs
+
+    cam_dir = root / "3d_gt" / "cameras"
+    shutil.copytree(SMOKE_DIR / "synth-h36m" / "initial_guess" / "cameras",
+                    cam_dir)
+    params = json.loads((cam_dir / "camera-parameters.json").read_text())
+    K = {c: np.reshape(params["intrinsics"][c]["calibration_matrix"], (3, 3))
+         for c in H36M_CAMERAS}
+    rng = np.random.default_rng(1)
+    acts = [("S9", a) for a in metrabs.ACTIVITIES_S9] + \
+        [("S11", a) for a in metrabs.ACTIVITIES_S11]
+    gts, mono, errs = {}, [], []
+    for i, ((subject, act), n) in enumerate(zip(
+            acts, metrabs.ACTIVITIES_LENGTH, strict=True)):
+        gt = synth.make_motion(n, seed=i)
+        gts[f"{subject}/{act}/poses.npz"] = gt
+        ext = params["extrinsics"][subject]
+        det = np.stack([np.stack([
+            synth.project(K[c], np.array(ext[c]["R"]),
+                          np.reshape(ext[c]["t"], 3), f) for f in gt])
+            for c in H36M_CAMERAS])
+        d = root / "raw" / subject / act
+        d.mkdir(parents=True)
+        np.savez(d / "poses2d.npz",
+                 poses2d=det + rng.normal(0, 2.0, det.shape))
+        for _ in H36M_CAMERAS:
+            m = (gt + rng.normal(0, MONO_SIGMA_MM, gt.shape)
+                 + rng.normal(0, MONO_SIGMA_MM, 3))
+            errs.append(np.linalg.norm(m - gt, axis=-1).mean(axis=-1))
+            mono.append(m)
+    np.savez(root / "coords3d.npz", coords3d_pred_world=np.concatenate(mono))
+    with contextlib.redirect_stdout(io.StringIO()):
+        metrabs.main(["--input_dir", str(root / "raw"), "--preds_3d",
+                      str(root / "coords3d.npz"), "--output_dir", str(root)])
+    return gts, float(np.mean(np.concatenate(errs)))
+
+
+def _fused_tree(root, name: str, device: str,
+                preds_2d: str = "2d_resnet") -> tuple[dict, float, float]:
+    """compute_initial_guess on ``device`` into initial_guess/<name>.
+    Returns ({file: poses3d}, wall ms of the tool over the tree, ms spent
+    in its fuse_poses calls, whose numpy results end each on the host)."""
+    import contextlib
+    import io
+
+    from skelsplat_tpu_torch.tools.h36m import compute_initial_guess
+
+    fuse, fuse_s = compute_initial_guess.fuse_poses, []
+
+    def timed_fuse(*args, **kwargs):
+        t = time.perf_counter()
+        out = fuse(*args, **kwargs)
+        fuse_s.append(time.perf_counter() - t)
+        return out
+
+    compute_initial_guess.fuse_poses = timed_fuse
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            compute_initial_guess.main([
+                "--root_dir", str(root), "--preds_2d", preds_2d,
+                "--output_name", f"initial_guess/{name}", "--device", device])
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        compute_initial_guess.fuse_poses = fuse
+    out = root / "initial_guess" / name
+    return {str(p.relative_to(out)): np.load(p)["poses3d"]
+            for p in sorted(out.glob("*/*/poses.npz"))}, ms, sum(fuse_s) * 1e3
+
+
+def _mpjpe(tree: dict, gt: dict) -> float:
+    """Mean per-joint error (mm) of ``tree``'s poses against ``gt``'s."""
+    return float(np.mean(np.concatenate([
+        np.linalg.norm(tree[k] - gt[k], axis=-1).mean(axis=-1)
+        for k in tree])))
+
+
+def _triangulation_guess():
+    """Phase 11 (c): phase 8 (e)'s triangulation clouds through
+    preprocess_triang_initial_guess. Every frame of the npz tree must be
+    bitwise one cloud's xyz, each cloud used once, in sorted order within
+    a file. Returns the tree's layout."""
+    from skelsplat_tpu_torch.data import ply
+    from skelsplat_tpu_torch.tools import preprocess_triang_initial_guess
+
+    clouds = OPTION_DIR / "tri-gpu" / "point_cloud" / "iteration_0"
+    xyz = {p.name: ply.read_xyz(str(p)) for p in clouds.glob("*.ply")}
+    assert len(xyz) == DATASET_SCENES, sorted(xyz)
+    by_bytes = {a.tobytes(): n for n, a in xyz.items()}
+    out = TOOLS_DIR / "synth-panoptic"
+    preprocess_triang_initial_guess.main([
+        "--input_dir", str(clouds), "--output_dir", str(out),
+        "--name", "triang_panoptic"])
+    seen, layout = [], {}
+    tree = out / "initial_guess" / "triang_panoptic"
+    for f in sorted(tree.rglob("poses.npz")):
+        frames = np.load(f)["poses3d"]
+        names = [by_bytes.get(np.ascontiguousarray(fr).tobytes())
+                 for fr in frames]
+        assert frames.dtype == np.float64 and None not in names, f
+        assert names == sorted(names), names
+        seen += names
+        layout[str(f.parent.relative_to(tree))] = names
+    assert sorted(seen) == sorted(xyz), (seen, sorted(xyz))
+    print(f"  (c) preprocess_triang_initial_guess over {len(xyz)} Panoptic "
+          f"clouds: every frame bitwise its PLY's xyz; layout {layout} "
+          f"(the name's first two '_' fields, as in the JAX tool)",
+          flush=True)
+    return layout
+
+
+def phase_tools(card: str):
+    """Phase 11: the data-preparation path. Returns (K1 launches of (b),
+    the phase's numbers)."""
+    import shutil
+
+    from skelsplat_tpu_torch import eval as eval_cli
+    from skelsplat_tpu_torch.config import load_config
+
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+
+    # (a) the fusion over the H36M test set's 2,181 frames, card against CPU
+    full = TOOLS_DIR / "test-set-h36m"
+    gt, mono_mpjpe = _test_set_inputs(full)
+    # the first call on the card pays the float64 kernels' first use; the
+    # second, over the same files, is the steady cost
+    fused = {}
+    for tag, device in (("card_first", "cuda"), ("card", "cuda"),
+                        ("cpu", "cpu")):
+        fused[tag] = _fused_tree(full, f"metrabs_{tag}", device,
+                                 preds_2d="2d_metrabs")
+    card_tree, cpu_tree = fused["card"][0], fused["cpu"][0]
+    assert sorted(card_tree) == sorted(cpu_tree) == sorted(gt), (
+        len(card_tree), len(cpu_tree), len(gt))
+    n_frames = sum(len(v) for v in card_tree.values())
+    assert n_frames == 2181, n_frames
+    assert all(np.isfinite(v).all() for v in card_tree.values())
+    d_fuse = max(float(np.abs(card_tree[k] - cpu_tree[k]).max())
+                 for k in card_tree)
+    fused_mpjpe = _mpjpe(card_tree, gt)
+    ms = {f"fusion_{tag}_{part}": r[i] for tag, r in fused.items()
+          for i, part in ((1, "tool_ms"), (2, "fuse_ms"))}
+    print(f"  (a) compute_initial_guess over {len(card_tree)} activities, "
+          f"{n_frames} frames x {N_VIEWS} cameras: tool wall time (files "
+          f"included) card {ms['fusion_card_first_tool_ms']:.3f} ms on its "
+          f"first call, {ms['fusion_card_tool_ms']:.3f} ms on the second, "
+          f"CPU {ms['fusion_cpu_tool_ms']:.3f} ms; of which in fuse_poses "
+          f"card {ms['fusion_card_first_fuse_ms']:.3f} / "
+          f"{ms['fusion_card_fuse_ms']:.3f} ms, CPU "
+          f"{ms['fusion_cpu_fuse_ms']:.3f} ms; largest |card - CPU| "
+          f"{d_fuse:.3g} mm; fused MPJPE {fused_mpjpe:.4f} mm against the "
+          f"mean single-camera {mono_mpjpe:.4f} mm, on {card}", flush=True)
+    assert d_fuse <= FUSE_ATOL_MM, d_fuse
+    assert fused_mpjpe < mono_mpjpe, (fused_mpjpe, mono_mpjpe)
+
+    # the fused guesses (b) starts from, on phase 6's tree
+    root = TOOLS_DIR / "synth-h36m"
+    shutil.copytree(SMOKE_DIR / "synth-h36m", root)
+    small_mono = _fusion_inputs(root)
+    small_tree = _fused_tree(root, "metrabs_resnet", "cuda")[0]
+    small_fused = _mpjpe(small_tree, {
+        k: np.load(root / "3d_gt" / k)["poses"][::64] for k in small_tree})
+    assert len(small_tree) == CLI_SCENES, sorted(small_tree)
+    assert small_fused < small_mono, (small_fused, small_mono)
+
+    # (b) a sweep from the fused guesses
+    run_dir = TOOLS_DIR / "run"
+    overrides = [f"dataset.data_root={root}",
+                 f"dataset.end_scene_id={TOOLS_SCENES}",
+                 "dataset.initial_guess=metrabs_resnet"]
+    guess_mpjpe = _initial_mpjpe(_loader(load_config(
+        "h36m.yaml", overrides, make_run_dir=False), TOOLS_SCENES))
+    results, counts = _train(["--config-name", "h36m.yaml", *overrides,
+                              f"hydra.run.dir={run_dir}"])
+    assert counts == {"raster_loss_grad": TOOLS_SCENES * ITERATIONS // 4,
+                      "raster_loss": 0}, counts
+    assert len(results) == TOOLS_SCENES, results
+    summary = json.loads((run_dir / "train_summary.json").read_text())
+    res = eval_cli.main(["--config-name", "h36m.yaml", *overrides,
+                         f"eval.output_path={run_dir}"])[ITERATIONS]
+    s_scene = summary["mean_seconds_per_scene"]
+    print(f"  (b) train.main from the fused guesses: launches {counts}; "
+          f"absolute MPJPE {res['absolute']:.4f} mm, relative "
+          f"{res['relative']:.4f} mm, against the fused guesses' "
+          f"{guess_mpjpe:.4f} mm; {s_scene:.6f} s/scene "
+          f"(mean_seconds_per_scene; {TOOLS_SCENES} scenes, {ITERATIONS} "
+          f"iterations, {N_VIEWS} views at {W}x{H}) on {card}", flush=True)
+    assert np.isfinite(res["absolute"]) and res["absolute"] < guess_mpjpe, (
+        res, guess_mpjpe)
+
+    # (c) the triangulation guesses
+    layout = _triangulation_guess()
+    return counts["raster_loss_grad"], {
+        **ms, "fusion_frames": n_frames,
+        "fusion_card_vs_cpu_mm": d_fuse, "mono_mpjpe_mm": mono_mpjpe,
+        "fused_mpjpe_mm": fused_mpjpe, "guess_mpjpe_mm": guess_mpjpe,
+        "sweep_mpjpe_mm": res["absolute"], "s_per_scene": s_scene,
+        "triang_layout": layout}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1492,7 +1769,7 @@ def main():
 
     from skelsplat_tpu_torch.tools.timing import card_line
 
-    print("[1/10] build", flush=True)
+    print("[1/11] build", flush=True)
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.load_library()
@@ -1515,10 +1792,10 @@ def main():
     print(f"  card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
 
-    print("[2/10] kernels against their plain versions", flush=True)
+    print("[2/11] kernels against their plain versions", flush=True)
     rows, timed, timed_b = phase_kernels()
 
-    print("[3/10] path: one H36M frame through SceneTrainer.optimize_scene",
+    print("[3/11] path: one H36M frame through SceneTrainer.optimize_scene",
           flush=True)
     counts, s_per_frame, (e0, e1) = phase_path(args.profile)
     for row in rows:
@@ -1527,10 +1804,10 @@ def main():
           f"{ITERATIONS} iterations, 4 views at {W}x{H}) on {card}",
           flush=True)
 
-    print("[4/10] renderer agreement: cuda vs fused", flush=True)
+    print("[4/11] renderer agreement: cuda vs fused", flush=True)
     phase_agree()
 
-    print("[5/10] measurement path: K3, roofline, kernel_probe, "
+    print("[5/11] measurement path: K3, roofline, kernel_probe, "
           "trace_summary", flush=True)
     k1, k2 = rows
     k3_row, k1_bound, k2_bound, k1_bound_b = phase_measure(
@@ -1541,7 +1818,7 @@ def main():
         k1_bound_b
     rows.append(k3_row)
 
-    print("[6/10] cli: train.main and eval.main over a synthetic H36M tree",
+    print("[6/11] cli: train.main and eval.main over a synthetic H36M tree",
           flush=True)
     cli_counts, s_per_scene, cli_res = phase_cli()
     k1["launches_cli"] = cli_counts["raster_loss_grad"]
@@ -1550,32 +1827,39 @@ def main():
           f"iterations, 4 views at {W}x{H}, save_images) on {card}",
           flush=True)
 
-    print("[7/10] batch: train.main at scene_batch 1 and 8 over a 10-scene "
+    print("[7/11] batch: train.main at scene_batch 1 and 8 over a 10-scene "
           "synthetic H36M tree", flush=True)
     batch_counts, _, _ = phase_batch(card, args.profile)
     k1["launches_batch"] = batch_counts["raster_loss_grad"]
 
-    print("[8/10] options: Panoptic and Occlusion-Person sweeps, the dense "
+    print("[8/11] options: Panoptic and Occlusion-Person sweeps, the dense "
           "soft-argmax path, confidence-weighted fusion, triangulation, "
           "render", flush=True)
     fields, k1_err = phase_options(card)
     k1.update(fields)
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_err)
 
-    print("[9/10] extras: eval.image_metrics (SSIM, LPIPS) card vs CPU, "
+    print("[9/11] extras: eval.image_metrics (SSIM, LPIPS) card vs CPU, "
           "bench_ssim, the native PLY codec, GaussianModel", flush=True)
     t0 = time.perf_counter()
     extras = phase_extras(card)
     print(f"  phase 9: {time.perf_counter() - t0:.1f} s; "
           f"{json.dumps(extras)}", flush=True)
 
-    print("[10/10] multichip: multichip_optimize on NCCL against the batch, "
+    print("[10/11] multichip: multichip_optimize on NCCL against the batch, "
           "the CLI on 2 ranks, dryrun_multichip, parity_study", flush=True)
     t0 = time.perf_counter()
     k1["launches_multichip"], multichip = phase_multichip(card, cli_res,
                                                           s_per_scene)
     print(f"  phase 10: {time.perf_counter() - t0:.1f} s; "
           f"{json.dumps(multichip)}", flush=True)
+
+    print("[11/11] tools: fused initial guesses on the card, a sweep from "
+          "them, the triangulation guesses", flush=True)
+    t0 = time.perf_counter()
+    k1["launches_tools"], tools = phase_tools(card)
+    print(f"  phase 11: {time.perf_counter() - t0:.1f} s; "
+          f"{json.dumps(tools)}", flush=True)
 
     print(card)
     print(json.dumps({

@@ -317,3 +317,32 @@ def test_eval_entry_point_runs_full_precision_convolutions(card):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "full precision" in out.stdout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero_error", [False, True])
+def test_fusion_on_the_card_matches_the_cpu(card, zero_error):
+    """tools/initial_guess.fuse_poses in float64 on the card against the
+    CPU within 1e-9 mm, NaN where a camera's reprojection error is 0."""
+    from skelsplat_tpu_torch.tools import make_synthetic_dataset as synth
+    from skelsplat_tpu_torch.tools.initial_guess import fuse_poses
+
+    rng = np.random.default_rng(3)
+    cams = synth.make_rig()
+    P = np.stack([K @ np.hstack([R, t.reshape(3, 1)]) for K, R, t in cams])
+    gt = synth.make_motion(50)
+    poses = gt[None] + rng.normal(0, 30.0, (4,) + gt.shape) \
+        + rng.normal(0, 25.0, (4, 1, 1, 3))
+    det = np.stack([np.stack([synth.project(K, R, t, f) for f in gt])
+                    for K, R, t in cams]) + rng.normal(0, 2.0, (4, 50, 17, 2))
+    if zero_error:   # integer affine cameras: camera 0 exact at (7, 3)
+        P = np.zeros((4, 3, 4))
+        P[:, 0, 0] = P[:, 1, 1] = np.arange(2.0, 6.0)
+        P[:, 2, 3] = 1.0
+        poses = np.round(poses)
+        det[:, 7, 3] = P[:, :2, :3] @ poses[0, 7, 3]
+    got = fuse_poses(poses, det, P, device="cuda")
+    want = fuse_poses(poses, det, P, device="cpu")
+    nan = np.isnan(want)
+    assert np.array_equal(np.isnan(got), nan) and nan.any() == zero_error
+    assert np.abs(got[~nan] - want[~nan]).max() <= 1e-9

@@ -250,7 +250,10 @@ for name in ('config', 'data.loader', 'engine.driver', 'evaluation', 'train',
              'eval', 'tools.make_synthetic_dataset', 'utils', 'native',
              'ops.ssim', 'ops.lpips', 'ops.image_metrics', 'ops.knn',
              'ops.sh', 'ops.densify', 'data.colmap', 'data.camera_utils',
-             'data.scene_readers', 'renderer_registry', 'tools.bench_ssim'):
+             'data.scene_readers', 'renderer_registry', 'tools.bench_ssim',
+             'tools.initial_guess', 'tools.h36m.compute_initial_guess',
+             'tools.panoptic.compute_initial_guess_panoptic',
+             'tools.preprocess_triang_initial_guess'):
     assert 'skelsplat_tpu_torch.' + name in names, name
 print('isolated', len(names))
 """
