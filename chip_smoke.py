@@ -26,7 +26,9 @@ Phases, each failing the script (nonzero exit) on any error:
 3. path    — one synthetic H36M frame (4 views at 1002×1000, 17 joints,
              500 iterations = 125 macro steps, l2_gaussian + limb
              consistency) through SceneTrainer.optimize_scene(renderer=
-             "cuda"). The launch counts are read around optimize_scene
+             "cuda"), the captured path (the first frame warms up and
+             captures the step graph, phases 6 and 7 replay theirs
+             too). The launch counts are read around optimize_scene
              alone: exactly 125 K1 launches and no K2 launch (the path
              always takes gradients, as the JAX path does). Asserts finite
              xyz, falling MPJPE, and a falling no-grad loss (K2, scored
@@ -152,6 +154,22 @@ Phases, each failing the script (nonzero exit) on any error:
              ``tools.preprocess_triang_initial_guess``: every frame
              bitwise one cloud's xyz, each cloud once, sorted within its
              file.
+12. graphs — the captured path against the eager one
+             (SceneTrainer(eager=True)), in this call: (a) one H36M frame
+             as in phase 3, a warm-up frame then GRAPH_FRAMES timed frames
+             of each, interleaved: xyz bitwise on every frame, s/frame of
+             each (median), the graph's capture and instantiate time and
+             nodes, exactly 125 K1 launches a frame by the counter and
+             by the profiler's kernel rows of a captured frame (taken
+             again while the profiler drops records), and the device
+             busy share of a captured frame; (b) phase 6's tree through
+             train.main with opt_early_stopping and save_images off,
+             chained (fetch_scenes=4: one optimize_scene_chain) against
+             pipeline_scenes=false: 500 K1 launches each, summary rows
+             and PLY bytes equal, s/scene of each; (c) phase 7's 10
+             scenes in its batches (8 + 2) through optimize_scene_batch,
+             eager and captured, twice each: xyz bitwise, and bitwise
+             phase 7's batched PLYs, s/scene of each second pass.
 
 The line before the last is {"kernels": [...], "off_path_kernels": [...]}:
 "kernels" lists the kernels the paths launched (K1 on the frame, with
@@ -162,7 +180,8 @@ as "launches_panoptic", "launches_occlusion_person" and
 "launches_fusion", and its time, plain time and bounds at Panoptic's and
 Occlusion-Person's shapes as "*_panoptic" and "*_occlusion_person"; on
 phase 10 (a)'s mesh run as "launches_multichip"; on phase 11 (b)'s sweep
-as "launches_tools"; K3 on the measurement path), "off_path_kernels" those
+as "launches_tools"; in phase 12 (a)'s profiled captured frame as
+"launches_captured_frame"; K3 on the measurement path), "off_path_kernels" those
 the port holds that no path launches (K2, launches 0); the last line is
 {"ok": true, "device": {...}}. ``--profile`` adds a torch.profiler pass
 over one frame and over one batch of 8 frames (device time by kernel,
@@ -232,6 +251,8 @@ MULTICHIP_ATOL_MM = 1e-3
 # 1e-4 to 1e-2 mm range predicted for it
 PARITY_MM = 1e-2
 TOOLS_DIR = SMOKE_DIR / "tools"
+GRAPH_DIR = SMOKE_DIR / "graphs"
+GRAPH_FRAMES = 3   # phase 12 (a)'s timed frames of each mode, after a warm-up
 TOOLS_SCENES = 2
 # phase 11 (a, b): per-camera monocular predictions, the GT plus noise and a
 # per-camera offset (each N(0, MONO_SIGMA_MM) per coordinate: ~36 mm from
@@ -391,7 +412,7 @@ def phase_kernels():
     return rows, timed, timed_b
 
 
-def make_trainer(iterations: int, renderer: str):
+def make_trainer(iterations: int, renderer: str, eager: bool = False):
     from skelsplat_tpu_torch.core.gaussians import SkeletonModel
     from skelsplat_tpu_torch.engine.optim import OptConfig
     from skelsplat_tpu_torch.engine.trainer import SceneTrainer, TrainSettings
@@ -399,7 +420,7 @@ def make_trainer(iterations: int, renderer: str):
     return SceneTrainer(SkeletonModel("h36m", N_JOINTS, scaling=3.0,
                                       scaling_modifier=1.0),
                         OptConfig(iterations=iterations), TrainSettings(),
-                        W, H, renderer=renderer, device="cuda")
+                        W, H, renderer=renderer, device="cuda", eager=eager)
 
 
 def frame_loss(pose, p2d, cams, xyz=None):
@@ -1030,7 +1051,8 @@ def dense_card_vs_cpu(root):
                          driver.train_settings_from(cfg.training), W_, H_,
                          device=dev)
         assert t.renderer == "dense", t.renderer
-        init, p2d, _, drop, _ = t.host_inputs(rec.pose_3d, rec.poses_2d, cams)
+        init, p2d, _, _, drop, _ = t.host_inputs(rec.pose_3d, rec.poses_2d,
+                                                 cams)
         c = cams.map(lambda x: x.to(dev))
         p2d = torch.as_tensor(p2d, device=dev)
         params, aux = t._prepare(init, p2d, c, torch.as_tensor(drop,
@@ -1755,6 +1777,211 @@ def phase_tools(card: str):
         "triang_layout": layout}
 
 
+def _frame_profile(trainer, frame):
+    """K1's kernel records and the device busy time of one profiled run of
+    ``frame`` (padded by tools/timing.py::profiled_round, after a
+    profiled warm-up run), taken again, up to TRACE_ATTEMPTS times, while
+    the profiler drops kernel records. Returns (K1 tile-kernel records,
+    live-list records, busy seconds, profiled wall seconds, sessions)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from skelsplat_tpu_torch.tools.timing import PROFILE_EDGE_S, profiled_round
+
+    k = trainer.n_macro
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        walls = []
+
+        def run():
+            t0 = time.perf_counter()
+            frame()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     acc_events=True) as prof:
+            for _ in range(2):
+                profiled_round(prof, run, 1)
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and not e.is_user_annotation]
+        tiles = sum(e.count for e in rows if "raster_loss_live" in e.key)
+        lists = sum(e.count for e in rows if "live_tiles" in e.key)
+        assert tiles <= k and lists <= k, (tiles, lists)
+        if tiles == lists == k:
+            busy = sum(e.device_time_total for e in rows) / 1e6
+            print(f"  profile (session {attempt}, rounds padded by "
+                  f"{PROFILE_EDGE_S * 1e3:.0f} ms): {tiles} K1 tile-kernel "
+                  f"and {lists} live-list records", flush=True)
+            return tiles, lists, busy, walls[-1], attempt
+    raise AssertionError(f"no profile of {TRACE_ATTEMPTS} held every K1 "
+                         f"record of a frame")
+
+
+def phase_graphs(card: str, cli_s_per_scene: float):
+    """Phase 12: the captured path against the eager one, in this call.
+    Returns the JSON-able findings."""
+    import shutil
+
+    from skelsplat_tpu_torch import compat
+    from skelsplat_tpu_torch.core.cameras import stack_cameras
+    from skelsplat_tpu_torch.data import cameras_io, ply
+    from skelsplat_tpu_torch.data.loader import DataLoader
+    from skelsplat_tpu_torch.ops import cuda_raster as cr
+    from skelsplat_tpu_torch.synthetic import synthetic_inputs
+
+    out = {"card": card}
+    # (a) one H36M frame, eager and captured, interleaved
+    init, gt, p2d, cams_np = synthetic_inputs(1 + GRAPH_FRAMES, W, H,
+                                              n_views=N_VIEWS,
+                                              n_joints=N_JOINTS, seed=0)
+    cams = compat.camera_from_numpy(cams_np, device="cpu")
+    trainers = {m: make_trainer(ITERATIONS, "cuda", eager=m == "eager")
+                for m in ("eager", "captured")}
+
+    def frame(mode, s):
+        params, _ = trainers[mode].optimize_scene(init[s], p2d[s], cams,
+                                                  gt[s], lean=True)
+        return params.xyz.cpu().numpy()
+
+    xyz = {m: frame(m, 0) for m in trainers}   # warm-up; captures the graph
+    assert np.array_equal(xyz["eager"], xyz["captured"]), \
+        float(np.abs(xyz["eager"] - xyz["captured"]).max())
+    times = {m: [] for m in trainers}
+    for s in range(1, 1 + GRAPH_FRAMES):
+        got = {}
+        for m in trainers:
+            torch.cuda.synchronize()
+            for k in cr.launches:
+                cr.launches[k] = 0
+            t0 = time.perf_counter()
+            got[m] = frame(m, s)
+            times[m].append(time.perf_counter() - t0)
+            assert dict(cr.launches) == {"raster_loss_grad": ITERATIONS // 4,
+                                         "raster_loss": 0}, (m, cr.launches)
+        assert np.array_equal(got["eager"], got["captured"]), s
+    (graph,) = trainers["captured"].graphs.values()
+    s_frame = {m: float(np.median(t)) for m, t in times.items()}
+    tiles, lists, busy, wall_p, sessions = _frame_profile(
+        trainers["captured"], lambda: frame("captured", 1))
+    out["a"] = {
+        "s_per_frame_eager": s_frame["eager"],
+        "s_per_frame_captured": s_frame["captured"],
+        "frames_eager": times["eager"], "frames_captured": times["captured"],
+        "capture_s": graph.capture_seconds,
+        "instantiate_s": graph.instantiate_seconds,
+        "graph_nodes": graph.nodes, "graph_launches": graph.launches,
+        "k1_launches_counter": ITERATIONS // 4,
+        "k1_records_profiler": tiles, "live_list_records_profiler": lists,
+        "device_busy_s": busy,
+        "busy_share_of_frame": busy / s_frame["captured"],
+        "busy_share_of_profiled_wall": busy / wall_p,
+        "profile_sessions": sessions}
+    print(f"  (a) one H36M frame ({ITERATIONS} iterations, 4 views at "
+          f"{W}x{H}), xyz bitwise eager = captured on {1 + GRAPH_FRAMES} "
+          f"frames: eager {s_frame['eager']:.6f} s/frame, captured "
+          f"{s_frame['captured']:.6f} s/frame (medians of {GRAPH_FRAMES}: "
+          f"{[round(t, 6) for t in times['eager']]}, "
+          f"{[round(t, 6) for t in times['captured']]}); capture "
+          f"{graph.capture_seconds:.4f} s, instantiate "
+          f"{graph.instantiate_seconds:.4f} s, {graph.nodes} nodes a graph; "
+          f"K1 launches {ITERATIONS // 4} (counter) and {tiles} (profiler); "
+          f"device busy {busy:.4f} s = {busy / s_frame['captured']:.4f} of "
+          f"a captured frame on {card}", flush=True)
+    assert tiles == ITERATIONS // 4
+
+    # (b) phase 6's tree through the CLI: chained against serial
+    root = SMOKE_DIR / "synth-h36m"
+    base = [f"dataset.data_root={root}", f"dataset.end_scene_id={CLI_SCENES}",
+            "debug.save_images=false",
+            "training.early_stopping=opt_early_stopping"]
+    runs = {}
+    for mode, extra in (("chained", [f"training.fetch_scenes={CLI_SCENES}"]),
+                        ("serial", ["training.pipeline_scenes=false"])):
+        run_dir = GRAPH_DIR / mode
+        shutil.rmtree(run_dir, ignore_errors=True)
+        results, counts = _train(["--config-name", "h36m.yaml", *base,
+                                  *extra, f"hydra.run.dir={run_dir}"])
+        assert counts == {"raster_loss_grad": CLI_SCENES * ITERATIONS // 4,
+                          "raster_loss": 0}, (mode, counts)
+        runs[mode] = (run_dir, json.loads(
+            (run_dir / "train_summary.json").read_text()))
+    (cdir, chained), (sdir, serial) = runs["chained"], runs["serial"]
+    assert chained["pipelined_scenes"] and not serial["pipelined_scenes"]
+    assert len(chained["scenes"]) == len(serial["scenes"]) == CLI_SCENES
+    for c, r in zip(chained["scenes"], serial["scenes"]):
+        for key in ("scene_name", "abs_error", "rel_error", "stopped_at"):
+            assert c[key] == r[key], (key, c, r)
+        rel = (Path("point_cloud") / f"iteration_{c['stopped_at'] or ITERATIONS}"
+               / f"{c['scene_name']}.ply")
+        assert (cdir / rel).read_bytes() == (sdir / rel).read_bytes(), rel
+    out["b"] = {"s_per_scene_chained": chained["mean_seconds_per_scene"],
+                "s_per_scene_serial": serial["mean_seconds_per_scene"],
+                "stopped_at": [c["stopped_at"] for c in chained["scenes"]]}
+    print(f"  (b) phase 6's tree, opt_early_stopping: chained "
+          f"(fetch_scenes={CLI_SCENES}) {out['b']['s_per_scene_chained']:.6f} "
+          f"s/scene, pipeline_scenes=false "
+          f"{out['b']['s_per_scene_serial']:.6f} s/scene (phase 6, "
+          f"save_images, {cli_s_per_scene:.6f}); summary rows and PLYs "
+          f"bitwise; stops {out['b']['stopped_at']} on {card}", flush=True)
+
+    # (c) phase 7's batched sweep, captured against eager
+    broot = BATCH_DIR / "synth-h36m"
+    loader = DataLoader(str(broot), str(broot / "initial_guess" / "metrabs"),
+                        str(broot / "2d_metrabs"), end_id=BATCH_SCENES)
+    recs = [rec for _, rec in loader]
+    groups = [recs[i:i + SCENE_BATCH]
+              for i in range(0, len(recs), SCENE_BATCH)]
+    inputs = []
+    for g in groups:
+        cams_g = [cameras_io.build_camera_batch(r.cameras, device="cpu")
+                  for r in g]
+        inputs.append((np.stack([r.pose_3d for r in g]),
+                       np.stack([np.asarray(r.poses_2d)[..., :2] for r in g]),
+                       stack_cameras(cams_g),
+                       np.stack([r.pose_3d_gt for r in g])))
+    assert all(int(x[2].width.max()) == W for x in inputs)
+    batch_trainers = {m: make_trainer(ITERATIONS, "cuda", eager=m == "eager")
+                      for m in ("eager", "captured")}
+
+    def sweep(mode):
+        xs = []
+        for x in inputs:
+            params, _ = batch_trainers[mode].optimize_scene_batch(*x,
+                                                                  lean=True)
+            xs.append(params.xyz.cpu().numpy())
+        return np.concatenate(xs)
+
+    sweep_s = {m: [] for m in batch_trainers}
+    xyz_b = {}
+    for rep in range(2):     # the first pass warms up and captures
+        for m in batch_trainers:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            xyz_b[m] = sweep(m)
+            sweep_s[m].append(time.perf_counter() - t0)
+        assert np.array_equal(xyz_b["eager"], xyz_b["captured"]), rep
+    cli_pc = BATCH_DIR / f"run_b{SCENE_BATCH}" / "point_cloud" / \
+        f"iteration_{ITERATIONS}"
+    for r, x in zip(recs, xyz_b["captured"]):
+        assert np.array_equal(ply.read_xyz(str(cli_pc / f"{r.scene_name}.ply")),
+                              x), r.scene_name
+    n = len(recs)
+    out["c"] = {"s_per_scene_eager": sweep_s["eager"][-1] / n,
+                "s_per_scene_captured": sweep_s["captured"][-1] / n,
+                "warm_up_pass_s": {m: v[0] for m, v in sweep_s.items()},
+                "graphs": len(batch_trainers["captured"].graphs)}
+    print(f"  (c) phase 7's {n} scenes in batches of {SCENE_BATCH} "
+          f"({[len(g) for g in groups]}): eager "
+          f"{out['c']['s_per_scene_eager']:.6f} s/scene, captured "
+          f"{out['c']['s_per_scene_captured']:.6f} s/scene (second pass; "
+          f"the first {sweep_s['eager'][0]:.3f} and "
+          f"{sweep_s['captured'][0]:.3f} s); bitwise, and the captured xyz "
+          f"bitwise phase 7's PLYs, on {card}", flush=True)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1769,7 +1996,7 @@ def main():
 
     from skelsplat_tpu_torch.tools.timing import card_line
 
-    print("[1/11] build", flush=True)
+    print("[1/12] build", flush=True)
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.load_library()
@@ -1792,10 +2019,10 @@ def main():
     print(f"  card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
 
-    print("[2/11] kernels against their plain versions", flush=True)
+    print("[2/12] kernels against their plain versions", flush=True)
     rows, timed, timed_b = phase_kernels()
 
-    print("[3/11] path: one H36M frame through SceneTrainer.optimize_scene",
+    print("[3/12] path: one H36M frame through SceneTrainer.optimize_scene",
           flush=True)
     counts, s_per_frame, (e0, e1) = phase_path(args.profile)
     for row in rows:
@@ -1804,10 +2031,10 @@ def main():
           f"{ITERATIONS} iterations, 4 views at {W}x{H}) on {card}",
           flush=True)
 
-    print("[4/11] renderer agreement: cuda vs fused", flush=True)
+    print("[4/12] renderer agreement: cuda vs fused", flush=True)
     phase_agree()
 
-    print("[5/11] measurement path: K3, roofline, kernel_probe, "
+    print("[5/12] measurement path: K3, roofline, kernel_probe, "
           "trace_summary", flush=True)
     k1, k2 = rows
     k3_row, k1_bound, k2_bound, k1_bound_b = phase_measure(
@@ -1818,7 +2045,7 @@ def main():
         k1_bound_b
     rows.append(k3_row)
 
-    print("[6/11] cli: train.main and eval.main over a synthetic H36M tree",
+    print("[6/12] cli: train.main and eval.main over a synthetic H36M tree",
           flush=True)
     cli_counts, s_per_scene, cli_res = phase_cli()
     k1["launches_cli"] = cli_counts["raster_loss_grad"]
@@ -1827,26 +2054,26 @@ def main():
           f"iterations, 4 views at {W}x{H}, save_images) on {card}",
           flush=True)
 
-    print("[7/11] batch: train.main at scene_batch 1 and 8 over a 10-scene "
+    print("[7/12] batch: train.main at scene_batch 1 and 8 over a 10-scene "
           "synthetic H36M tree", flush=True)
     batch_counts, _, _ = phase_batch(card, args.profile)
     k1["launches_batch"] = batch_counts["raster_loss_grad"]
 
-    print("[8/11] options: Panoptic and Occlusion-Person sweeps, the dense "
+    print("[8/12] options: Panoptic and Occlusion-Person sweeps, the dense "
           "soft-argmax path, confidence-weighted fusion, triangulation, "
           "render", flush=True)
     fields, k1_err = phase_options(card)
     k1.update(fields)
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_err)
 
-    print("[9/11] extras: eval.image_metrics (SSIM, LPIPS) card vs CPU, "
+    print("[9/12] extras: eval.image_metrics (SSIM, LPIPS) card vs CPU, "
           "bench_ssim, the native PLY codec, GaussianModel", flush=True)
     t0 = time.perf_counter()
     extras = phase_extras(card)
     print(f"  phase 9: {time.perf_counter() - t0:.1f} s; "
           f"{json.dumps(extras)}", flush=True)
 
-    print("[10/11] multichip: multichip_optimize on NCCL against the batch, "
+    print("[10/12] multichip: multichip_optimize on NCCL against the batch, "
           "the CLI on 2 ranks, dryrun_multichip, parity_study", flush=True)
     t0 = time.perf_counter()
     k1["launches_multichip"], multichip = phase_multichip(card, cli_res,
@@ -1854,12 +2081,20 @@ def main():
     print(f"  phase 10: {time.perf_counter() - t0:.1f} s; "
           f"{json.dumps(multichip)}", flush=True)
 
-    print("[11/11] tools: fused initial guesses on the card, a sweep from "
+    print("[11/12] tools: fused initial guesses on the card, a sweep from "
           "them, the triangulation guesses", flush=True)
     t0 = time.perf_counter()
     k1["launches_tools"], tools = phase_tools(card)
     print(f"  phase 11: {time.perf_counter() - t0:.1f} s; "
           f"{json.dumps(tools)}", flush=True)
+
+    print("[12/12] graphs: captured against eager (a frame, the chained "
+          "CLI sweep against the serial one, the batched sweep)", flush=True)
+    t0 = time.perf_counter()
+    graphs = phase_graphs(card, s_per_scene)
+    k1["launches_captured_frame"] = graphs["a"]["k1_records_profiler"]
+    print(f"  phase 12: {time.perf_counter() - t0:.1f} s; "
+          f"{json.dumps(graphs)}", flush=True)
 
     print(card)
     print(json.dumps({

@@ -76,21 +76,30 @@ def init_params(initial_pose, scene_type: str, scaling: float,
     """Seed parameters from an (N,3) initial pose: means = the pose,
     log-scales = ``scaling`` (extremity joints × ``scaling_modifier``),
     identity quaternions, opacity pinned at 1. ``scaling <= 0`` uses the
-    point coordinates as raw scales, as the reference does."""
+    point coordinates as raw scales, as the reference does. The pose is
+    numpy or a tensor (on ``device`` already, as a packed transfer leaves
+    it); the parameters are new tensors either way."""
     dev = resolve_device(device)
-    pts = np.asarray(initial_pose, dtype=np.float32).reshape(-1, 3)
-    n = pts.shape[0]
+    if isinstance(initial_pose, torch.Tensor):
+        xyz = initial_pose.detach().to(dev, torch.float32).reshape(-1, 3)
+        xyz = xyz.clone()
+    else:
+        xyz = torch.as_tensor(
+            np.asarray(initial_pose, dtype=np.float32).reshape(-1, 3),
+            device=dev)
+    n = xyz.shape[0]
     if scaling > 0.0:
         scales = np.full((n, 3), scaling, dtype=np.float32)
         idx = [i for i in EXTREMITY_JOINTS.get(scene_type, []) if i < n]
         scales[idx, :] *= scaling_modifier
+        scales = torch.as_tensor(scales, device=dev)
     else:
-        scales = pts.copy()
+        scales = xyz.clone()
     quats = np.zeros((n, 4), dtype=np.float32)
     quats[:, 0] = 1.0
     opacity = np.full((n, 1), OPACITY_INIT_LOGIT, dtype=np.float32)
-    return GaussianParams(*(torch.as_tensor(a, device=dev)
-                            for a in (pts, scales, quats, opacity)))
+    return GaussianParams(xyz, scales, *(torch.as_tensor(a, device=dev)
+                                         for a in (quats, opacity)))
 
 
 @dataclasses.dataclass(frozen=True)

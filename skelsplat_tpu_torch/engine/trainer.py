@@ -7,9 +7,18 @@ grads and scale/rot/opacity grads from the last rendered view only. Since
 the parameters are constant between optimizer steps, one macro step is:
 render all visited views at the current parameters, combine gradients,
 step. Here a macro step is a batch over the visited views (one preprocess
-over (A, N), one kernel launch for all A views), and the scene is a Python
-loop over macro steps that never waits on the device: every decision
-(early stop, freezing after it) is a tensor select.
+over (A, N), one kernel launch for all A views), and the scene is a loop
+over macro steps that never waits on the device: every decision (early
+stop, freezing after it) is a tensor select, and the step reads its index
+from a device counter.
+
+On a GPU, with the kernel renderer, the scene is one device program, as
+JAX's jitted scene is: the macro step is captured once as a CUDA graph
+(``engine/graphs.py``) and replayed ``n_macro`` times;
+``SceneTrainer(eager=True)`` runs the same step op by op instead, for
+comparisons (the counterpart of ``jax.disable_jit()``). The "fused" and
+"dense" renderers stay eager (``SceneTrainer.captures`` says why). On the
+CPU the loop is eager.
 
 Early stopping is exact for every (nviews, accumulation_steps): the
 reference's 8-loss window check runs against a rolling history, and a
@@ -20,6 +29,8 @@ at once: each macro step is one preprocess and one kernel launch over the
 B·A visited views and one backward, and compose, Adam and the early-stop
 window are per scene. The composition functions take leading scene axes
 on every carried tensor, so one scene and a batch run the same code.
+``optimize_scene_chain`` runs G scenes one after another with the
+early-stop window carried between them, each scene bitwise its serial run.
 """
 
 from __future__ import annotations
@@ -34,12 +45,14 @@ from skelsplat_tpu_torch import resolve_device
 from skelsplat_tpu_torch.core.cameras import Camera, flatten_scenes
 from skelsplat_tpu_torch.core.gaussians import (PARAM_FIELDS, GaussianParams,
                                                 SkeletonModel, init_params)
+from skelsplat_tpu_torch.engine import graphs
 from skelsplat_tpu_torch.engine.optim import AdamGroups, OptConfig
 from skelsplat_tpu_torch.ops import cuda_raster
 from skelsplat_tpu_torch.ops import heatmaps as hm
 from skelsplat_tpu_torch.ops import rasterizer
 from skelsplat_tpu_torch.ops.fused import FUSED_LOSSES, make_fused_view_loss
 from skelsplat_tpu_torch.ops.similarity import confidence_weighted_mean
+from skelsplat_tpu_torch.utils import put_trees, tree_leaves, tree_map
 
 REPEAT_TOL = 1e-6  # OptEarlyStopping repeat_tolerance
 RENDERERS = ("auto", "cuda", "fused", "dense")
@@ -257,6 +270,19 @@ class MacroHistory:
     hist8: torch.Tensor | None = None
 
 
+@dataclasses.dataclass(frozen=True)
+class LoopState:
+    """The macro loop's state on the device. A macro step writes each
+    tensor in place, so a captured step finds it where it left it."""
+
+    carry: tuple                    # compose_macro's carry
+    losses: torch.Tensor            # (…, K or 1, A)
+    error: torch.Tensor | None      # (…, K, N); None when lean
+    error_rel: torch.Tensor | None
+    stop_max: torch.Tensor          # (…,) int64 stop iteration, 0 = none
+    step: torch.Tensor              # () int64: the next macro step's index
+
+
 def _check_finite(k: int, A: int, losses_v, grads_v: GaussianParams,
                   params: GaussianParams):
     """Debug mode: raise ``FloatingPointError`` naming macro step ``k``
@@ -283,13 +309,22 @@ class SceneTrainer:
     for every other loss (the soft-argmax and plain-mean losses).
     ``debug`` checks every macro step's losses, gradients and parameters
     for NaN and infinity, at one host sync a step (``_check_finite``).
+
+    On a GPU the kernel renderer's scenes run as replays of a captured
+    macro step, one graph per program shape, cached in ``graphs``;
+    ``eager`` runs the step op by op instead (the counterpart of
+    ``jax.disable_jit()``, for tests and comparisons: no config key sets
+    it). The "fused" and "dense" renderers and the mesh path
+    (``parallel/mesh.py``) always run eagerly (``captures``).
     """
 
     def __init__(self, model: SkeletonModel, opt: OptConfig,
                  settings: TrainSettings, width: int, height: int,
                  antialiasing: bool = False, renderer: str = "auto",
-                 device="cuda", debug: bool = False):
+                 device="cuda", debug: bool = False, eager: bool = False):
         self.device = resolve_device(device)
+        self.eager = eager
+        self.graphs: dict[tuple, graphs.StepGraph] = {}
         self.model = model
         self.opt = opt
         self.settings = settings
@@ -342,8 +377,9 @@ class SceneTrainer:
         return main + cons * self.settings.lambda_consistency
 
     def _prepare(self, initial_pose, poses_2d, cameras, drop_mask):
-        """Parameters (from the (N,3) numpy ``initial_pose``) and the GT state
-        from the INITIAL covariance, once per scene."""
+        """Parameters (from the (N,3) ``initial_pose``, numpy or a device
+        tensor) and the GT state from the INITIAL covariance, once per
+        scene."""
         m = self.model
         params = init_params(initial_pose, m.scene_type, m.scaling,
                              m.scaling_modifier, device=self.device)
@@ -394,18 +430,24 @@ class SceneTrainer:
                 GaussianParams(*(g.reshape(lead + (A,) + tuple(g.shape[1:]))
                                  for g in grads)))
 
+
     def host_inputs(self, initial_pose, poses_2d, cameras: Camera,
                     pose_3d_gt=None, drop_mask=None, drop_generator=None):
-        """Host-side inputs of one scene: dtypes, the noise injection
+        """Host-side inputs of one scene, everything ``optimize_scene``
+        needs before the device transfer: dtypes, the noise injection
         (``settings.std_dev_noise``, from a seed-0 numpy generator made
         anew for every scene), the dropout mask (used when
         ``settings.dropout``: the given (V,N) bool ``drop_mask``, else one
         drawn from ``drop_generator`` by ``heatmaps.dropout_masks``) and
         the scene extent (the spatial LR scale) from the camera centres.
-        Pass ``cameras`` on the CPU, as the driver does, and no device is
-        involved. Returns (initial_pose, poses_2d, pose_3d_gt, drop_mask)
-        and the extent; the mask drawn from a generator lies on the
-        generator's device, the rest is numpy."""
+
+        Returns JAX's tuple (initial_pose, poses_2d, cameras, pose_3d_gt,
+        drop_mask, extent): numpy, with ``cameras`` as given (pass them on
+        the CPU, as the driver does, and no device is involved) and a mask
+        drawn from a generator on the generator's device. A sweep passes a
+        list of these through one ``utils.put_trees`` (one packed copy for
+        a group of scenes) and hands each back via ``optimize_scene(...,
+        inputs=...)`` or ``optimize_scene_chain``."""
         initial_pose = np.asarray(initial_pose, dtype=np.float32)
         if self.settings.std_dev_noise > 0.0:
             rng = np.random.default_rng(seed=0)
@@ -423,15 +465,16 @@ class SceneTrainer:
             drop_mask = hm.dropout_masks(drop_generator, nviews, n)
         else:
             drop_mask = np.zeros((nviews, n), dtype=bool)
-        extent = extent_from_centers(cameras.cam_center.detach().cpu().numpy())
-        return (initial_pose, poses_2d,
+        extent = np.asarray(extent_from_centers(
+            cameras.cam_center.detach().cpu().numpy()), np.float32)
+        return (initial_pose, poses_2d, cameras,
                 np.asarray(pose_3d_gt, dtype=np.float32), drop_mask, extent)
 
-    def optimize_scene(self, initial_pose, poses_2d, cameras: Camera,
+    def optimize_scene(self, initial_pose, poses_2d, cameras: Camera = None,
                        pose_3d_gt=None, drop_mask=None,
                        checkpoint_iterations=(), checkpoint_fn=None,
                        hist8_init=None, lean: bool = False,
-                       drop_generator=None):
+                       drop_generator=None, inputs=None):
         """Run the full optimization of one scene.
 
         initial_pose (N,3); poses_2d (V,N,2+); cameras a batched Camera
@@ -440,8 +483,13 @@ class SceneTrainer:
         on the device: nothing in the loop waits for it. ``lean`` keeps
         only the last telemetry row (K=1).
 
-        ``checkpoint_fn(iteration, params)`` is called with the device
-        parameters after each macro step that ends an iteration of
+        ``inputs``: a ``host_inputs`` tuple already on the device (one
+        element of ``utils.put_trees``' result); the data arguments are
+        then ignored. Without it the scene's inputs go over in one packed
+        copy.
+
+        ``checkpoint_fn(iteration, params)`` is called with a device copy
+        of the parameters after each macro step that ends an iteration of
         ``checkpoint_iterations``, each rounded down to a macro boundary
         (the iteration passed is the rounded one). ``hist8_init`` seeds
         the early-stop window with the previous scene's
@@ -450,21 +498,60 @@ class SceneTrainer:
         ``drop_generator`` draws the dropout mask where ``drop_mask`` is
         not given (``host_inputs``).
         """
-        dev = self.device
-        init_np, p2d_np, gt_np, drop_np, extent = self.host_inputs(
-            initial_pose, poses_2d, cameras, pose_3d_gt, drop_mask,
-            drop_generator)
-        extent = torch.full((), extent, dtype=torch.float32, device=dev)
-        cameras = cameras.map(lambda x: x.to(dev))
-        poses_2d, pose_3d_gt, drop_mask = (
-            torch.as_tensor(a, device=dev) for a in (p2d_np, gt_np, drop_np))
-        params, view_aux = self._prepare(init_np, poses_2d, cameras,
-                                         drop_mask)
-        nviews = poses_2d.shape[0]
-        return self._run(params, self._visited_grads(cameras, view_aux,
-                                                     poses_2d, 1, nviews),
-                         nviews, pose_3d_gt, extent, checkpoint_iterations,
-                         checkpoint_fn, hist8_init, lean)
+        if inputs is None:
+            inputs = put_trees([self.host_inputs(
+                initial_pose, poses_2d, cameras, pose_3d_gt, drop_mask,
+                drop_generator)], self.device)[0]
+        return self._optimize_inputs(inputs, checkpoint_iterations,
+                                     checkpoint_fn, hist8_init, lean)
+
+    def _optimize_inputs(self, inputs, checkpoint_iterations=(),
+                         checkpoint_fn=None, hist8_init=None,
+                         lean: bool = False, keep: bool = True):
+        """``optimize_scene`` of device ``inputs``. With ``keep`` false
+        the results of a captured run are the graph's own buffers, valid
+        until its next scene (``optimize_scene_chain`` copies them)."""
+        init, poses_2d, cameras, pose_3d_gt, drop_mask, extent = inputs
+        params, view_aux = self._prepare(init, poses_2d, cameras, drop_mask)
+        return self._run_scenes(params, cameras, view_aux, poses_2d,
+                                pose_3d_gt, extent, 1, poses_2d.shape[0],
+                                checkpoint_iterations, checkpoint_fn,
+                                hist8_init, lean, keep)
+
+    def optimize_scene_chain(self, host_inputs_list, hist8_init=None,
+                             lean: bool = False):
+        """Run G scenes of one (V, N) shape one after another (counterpart
+        of JAX's ``optimize_scene_chain``, a ``lax.scan`` of the scene
+        program over the group): the group's inputs go over in one packed
+        copy, and the early-stop window (``hist8``) passes from scene to
+        scene on the device, so each scene's results are bitwise those of
+        ``optimize_scene`` in a loop with the window carried. On the card
+        each scene is ``n_macro`` replays of the cached step graph, its
+        results copied into the group's stacked outputs before the next
+        scene is loaded; on the CPU it is the eager loop.
+
+        ``host_inputs_list``: ``host_inputs`` tuples. Returns (params,
+        MacroHistory) with a leading G axis on every field but ``hist8``,
+        the final window (seed the next group's call with it; None without
+        early stopping); ``stopped_at`` is (G,). ``lean`` keeps only each
+        scene's last telemetry row (K=1).
+        """
+        use_stop = self.settings.early_stopping == "opt_early_stopping"
+        hist8 = hist8_init if use_stop else None
+        group = put_trees(list(host_inputs_list), self.device)
+        out = None
+        for g, inputs in enumerate(group):
+            params, history = self._optimize_inputs(
+                inputs, hist8_init=hist8, lean=lean, keep=False)
+            res = (params, dataclasses.replace(history, hist8=None))
+            if out is None:
+                out = tree_map(lambda x: x.new_empty((len(group),)
+                                                     + tuple(x.shape)), res)
+            tree_map(lambda o, x, g=g: o[g].copy_(x), out, res)
+            hist8 = history.hist8
+        params_g, history_g = out
+        return params_g, dataclasses.replace(
+            history_g, hist8=None if hist8 is None else hist8.clone())
 
     def optimize_scene_batch(self, initial_b, poses_2d_b, cameras_b: Camera,
                              pose_3d_gt_b=None, lean: bool = False):
@@ -481,11 +568,11 @@ class SceneTrainer:
         (zeros if absent): numpy or host tensors; cameras_b a Camera with
         leading (B, V) axes (``stack_cameras`` of the scenes' Cameras),
         ideally on the CPU: the extents come from its camera centres on the
-        host. Returns (params with leading B, MacroHistory with losses
-        (B,K,A), error/error_rel (B,K,N), stopped_at (B,)), on the device;
-        ``lean`` keeps only the last telemetry row (K=1).
+        host. The batch's inputs go over in one packed copy. Returns
+        (params with leading B, MacroHistory with losses (B,K,A),
+        error/error_rel (B,K,N), stopped_at (B,)), on the device; ``lean``
+        keeps only the last telemetry row (K=1).
         """
-        dev = self.device
         initial_b = np.asarray(initial_b, dtype=np.float32)
         poses_2d_b = np.ascontiguousarray(np.asarray(poses_2d_b)[..., :2],
                                           dtype=np.float32)
@@ -493,20 +580,18 @@ class SceneTrainer:
         pose_3d_gt_b = (np.zeros_like(initial_b) if pose_3d_gt_b is None
                         else np.asarray(pose_3d_gt_b, dtype=np.float32))
         centers = cameras_b.cam_center.detach().cpu().numpy()
-        extent = torch.as_tensor(
-            np.asarray([extent_from_centers(c) for c in centers], np.float32),
-            device=dev)
-        cameras_b = cameras_b.map(lambda x: x.to(dev))
-        poses_2d_b, pose_3d_gt_b = (torch.as_tensor(a, device=dev)
-                                    for a in (poses_2d_b, pose_3d_gt_b))
-        drop_b = torch.zeros((B, nviews, n), dtype=torch.bool, device=dev)
+        extent = np.asarray([extent_from_centers(c) for c in centers],
+                            np.float32)
+        drop_b = np.zeros((B, nviews, n), dtype=bool)
+        initial_b, poses_2d_b, cameras_b, pose_3d_gt_b, drop_b, extent = \
+            put_trees([(initial_b, poses_2d_b, cameras_b, pose_3d_gt_b,
+                        drop_b, extent)], self.device)[0]
         params, view_aux = self._prepare_batch(initial_b, poses_2d_b,
                                                cameras_b, drop_b)
-        view_grads = self._visited_grads(
-            flatten_scenes(cameras_b), view_aux,
-            poses_2d_b.reshape((B * nviews,) + (n, 2)), B, nviews)
-        return self._run(params, view_grads, nviews, pose_3d_gt_b, extent,
-                         lean=lean)
+        return self._run_scenes(
+            params, flatten_scenes(cameras_b), view_aux,
+            poses_2d_b.reshape((B * nviews,) + (n, 2)), pose_3d_gt_b, extent,
+            B, nviews, lean=lean)
 
     def _visited_grads(self, cameras, view_aux, poses_2d, n_scenes: int,
                        nviews: int):
@@ -519,73 +604,163 @@ class SceneTrainer:
             return lambda k, params: self._per_view_grads(
                 params, cameras, view_aux, poses_2d, A)
         idx_all = visit_order(self.n_macro, A, nviews, self.device)
-        # flat_all[k] indexes macro step k's visits in the scenes' flat views
+        # row k indexes macro step k's visits in the scenes' flat views
         flat_all = (torch.arange(n_scenes, device=self.device)[None, :, None]
                     * nviews + idx_all[:, None, :]).reshape(self.n_macro,
                                                             n_scenes * A)
 
         def grads(k, params):
-            flat = flat_all[k]
+            flat = flat_all.index_select(0, k.reshape(1)).reshape(-1)
             aux_k = (view_aux[flat] if self.renderer == "dense"
                      else view_aux.take(flat))
             return self._per_view_grads(params, cameras.take(flat), aux_k,
                                         poses_2d[flat], A)
         return grads
 
+    @property
+    def captures(self) -> bool:
+        """Whether scenes run as replays of captured macro steps: on a GPU
+        with the kernel renderer, unless the trainer was made with
+        ``eager=True``. The "fused" and "dense" renderers run eagerly:
+        their transmittance is a ``torch.cumprod``, whose backward asks
+        the host whether its input holds a zero, a sync that no captured
+        graph can hold."""
+        return (self.device.type == "cuda" and not self.eager
+                and self.renderer == "cuda")
+
+    def _loop_state(self, params, nviews: int, hist8_init, lean: bool):
+        """The macro loop's initial state, every tensor its own buffer
+        (the steps write into them in place)."""
+        dev = self.device
+        lead = tuple(params.xyz.shape[:-2])
+        A, K = self.settings.accumulation_steps, self.n_macro
+        use_stop = self.settings.early_stopping == "opt_early_stopping"
+        carry = init_macro_carry(params, self.adam.init(params), nviews,
+                                 use_stop, A != nviews, hist8_init)
+        n = params.xyz.shape[-2]
+
+        def zeros(shape, dtype=torch.float32):
+            return torch.zeros(lead + shape, dtype=dtype, device=dev)
+
+        return LoopState(
+            carry=tree_map(torch.clone, carry),
+            losses=zeros((1 if lean else K, A)),
+            error=None if lean else zeros((K, n)),
+            error_rel=None if lean else zeros((K, n)),
+            stop_max=zeros((), torch.int64),
+            step=torch.zeros((), dtype=torch.int64, device=dev))
+
+    def _step_fn(self, view_grads, nviews: int, pose_3d_gt, extent,
+                 lean: bool):
+        """One macro step as ``step(state) -> (losses_v, grads_v)``: the
+        visited views' losses and gradients at the state's parameters
+        (``view_grads(k, params)`` with ``k`` the device step counter),
+        then compose + Adam + the early-stop window, all written into
+        ``state`` in place, and the counter advanced. The step index is
+        read on the device, never from Python, so a captured step serves
+        every step."""
+        A = self.settings.accumulation_steps
+        use_stop = self.settings.early_stopping == "opt_early_stopping"
+        general = A != nviews
+        idx_all = visit_order(self.n_macro, A, nviews, self.device)
+        view_fusion = self.settings.view_fusion
+
+        def step(st: LoopState):
+            k = st.step
+            at = k.reshape(1)
+            axis = st.stop_max.dim()     # the history's step axis
+            losses_v, grads_v = view_grads(k, st.carry[0])
+            carry, rec = compose_macro(
+                self.adam, A, use_stop, general, st.carry, k, losses_v,
+                grads_v, idx_all.index_select(0, at).reshape(-1),
+                pose_3d_gt, extent, view_fusion, lean=lean)
+            for dst, src in zip(tree_leaves(st.carry), tree_leaves(carry),
+                                strict=True):
+                dst.copy_(src)
+            if lean:
+                st.losses.select(axis, 0).copy_(rec[0])
+            else:
+                st.losses.index_copy_(axis, at, rec[0].unsqueeze(axis))
+                st.error.index_copy_(axis, at, rec[1].unsqueeze(axis))
+                st.error_rel.index_copy_(axis, at, rec[2].unsqueeze(axis))
+            st.stop_max.copy_(torch.maximum(st.stop_max, rec[-1]))
+            st.step.add_(1)
+            return losses_v, grads_v
+        return step
+
+    def _run_scenes(self, params, cameras, view_aux, poses_2d, pose_3d_gt,
+                    extent, n_scenes: int, nviews: int,
+                    checkpoint_iterations=(), checkpoint_fn=None,
+                    hist8_init=None, lean: bool = False, keep: bool = True):
+        """The macro loop of prepared scenes whose views all live here
+        (``_visited_grads``): the eager ``_run``, or, where the trainer
+        ``captures``, replays of the step graph of this program shape,
+        made on first use and cached. ``keep`` false returns the graph's
+        own result buffers instead of copies."""
+        if not self.captures:
+            return self._run(
+                params, self._visited_grads(cameras, view_aux, poses_2d,
+                                            n_scenes, nviews),
+                nviews, pose_3d_gt, extent, checkpoint_iterations,
+                checkpoint_fn, hist8_init, lean)
+        state = self._loop_state(params, nviews, hist8_init, lean)
+        inputs = (cameras, view_aux, poses_2d, pose_3d_gt, extent)
+        key = (tuple(params.xyz.shape[:-2]), nviews,
+               self.settings.accumulation_steps, params.xyz.shape[-2],
+               self.W, self.H, lean, self.settings.early_stopping,
+               self.settings.accumulation_steps != nviews, self.renderer,
+               self.settings.view_fusion)
+        graph = self.graphs.get(key)
+        if graph is None:
+            def make_step(inp, st):
+                cams, aux, p2d, gt, ext = inp
+                step = self._step_fn(
+                    self._visited_grads(cams, aux, p2d, n_scenes, nviews),
+                    nviews, gt, ext, lean)
+                return lambda: step(st)
+            graph = self.graphs[key] = graphs.StepGraph(inputs, state,
+                                                        make_step)
+        graph.load(inputs, state)
+        out = self._loop(graph.step, graph.state, graph.inputs[3],
+                         checkpoint_iterations, checkpoint_fn, lean)
+        return tree_map(torch.clone, out) if keep else out
+
     def _run(self, params, view_grads, nviews: int, pose_3d_gt, extent,
              checkpoint_iterations=(), checkpoint_fn=None, hist8_init=None,
              lean: bool = False):
-        """The macro loop over prepared state, for one scene or a batch:
-        ``params``, ``pose_3d_gt`` and ``extent`` carry the scene axes (none
-        for one scene, (B,) for a batch). ``view_grads(k, params)`` gives
-        macro step ``k``'s (losses (…,A), grads (…,A,N,·)) of the visited
-        views in visit order (``_visited_grads``, or the mesh's gather in
+        """The eager macro loop over prepared state, for one scene or a
+        batch: ``params``, ``pose_3d_gt`` and ``extent`` carry the scene
+        axes (none for one scene, (B,) for a batch). ``view_grads(k,
+        params)`` gives macro step ``k``'s (losses (…,A), grads (…,A,N,·))
+        of the visited views in visit order, ``k`` a device int64 scalar
+        (``_visited_grads``, or the mesh's gather in
         ``parallel/mesh.py``); ``nviews`` is each scene's view count."""
-        dev = self.device
-        lead = tuple(params.xyz.shape[:-2])
-        A = self.settings.accumulation_steps
-        general = A != nviews
-        use_stop = self.settings.early_stopping == "opt_early_stopping"
-        carry = init_macro_carry(params, self.adam.init(params), nviews,
-                                 use_stop, general, hist8_init)
+        state = self._loop_state(params, nviews, hist8_init, lean)
+        step = self._step_fn(view_grads, nviews, pose_3d_gt, extent, lean)
+        return self._loop(lambda: step(state), state, pose_3d_gt,
+                          checkpoint_iterations, checkpoint_fn, lean)
 
-        K = self.n_macro
+    def _loop(self, run_step, st: LoopState, pose_3d_gt,
+              checkpoint_iterations, checkpoint_fn, lean: bool):
+        """``n_macro`` calls of ``run_step``, with the debug check and the
+        checkpoints between them; returns (params, MacroHistory) of the
+        state's tensors."""
+        A, K = self.settings.accumulation_steps, self.n_macro
         saves = {min(max(it // A, 0), K) for it in checkpoint_iterations}
         saves.discard(0)
-        ks = torch.arange(K, dtype=torch.int64, device=dev)
-        idx_all = visit_order(K, A, nviews, dev)
-        rows = 1 if lean else K
-        losses_h = torch.zeros(lead + (rows, A), dtype=torch.float32,
-                               device=dev)
-        stop_max = torch.zeros(lead, dtype=torch.int64, device=dev)
-        err_h = err_rel_h = None
-        if not lean:
-            n = params.xyz.shape[-2]
-            err_h = torch.zeros(lead + (K, n), dtype=torch.float32,
-                                device=dev)
-            err_rel_h = torch.zeros(lead + (K, n), dtype=torch.float32,
-                                    device=dev)
-
         for k in range(K):
-            losses_v, grads_v = view_grads(k, carry[0])
-            carry, rec = compose_macro(
-                self.adam, A, use_stop, general, carry, ks[k], losses_v,
-                grads_v, idx_all[k], pose_3d_gt, extent,
-                self.settings.view_fusion, lean=lean)
+            losses_v, grads_v = run_step()
             if self.debug:
-                _check_finite(k, A, losses_v, grads_v, carry[0])
-            losses_h[..., 0 if lean else k, :] = rec[0]
-            stop_max = torch.maximum(stop_max, rec[-1])
-            if not lean:
-                err_h[..., k, :] = rec[1]
-                err_rel_h[..., k, :] = rec[2]
+                _check_finite(k, A, losses_v, grads_v, st.carry[0])
             if checkpoint_fn is not None and k + 1 in saves:
-                checkpoint_fn((k + 1) * A, carry[0])
+                checkpoint_fn((k + 1) * A, st.carry[0].map(torch.clone))
 
-        params = carry[0]
+        params = st.carry[0]
+        err_h, err_rel_h = st.error, st.error_rel
         if lean:
             err, err_rel = _telemetry_norms(params.xyz, pose_3d_gt)
             err_h, err_rel_h = err.unsqueeze(-2), err_rel.unsqueeze(-2)
+        use_stop = self.settings.early_stopping == "opt_early_stopping"
         return params, MacroHistory(
-            losses=losses_h, error=err_h, error_rel=err_rel_h,
-            stopped_at=stop_max, hist8=carry[2] if use_stop else None)
+            losses=st.losses, error=err_h, error_rel=err_rel_h,
+            stopped_at=st.stop_max, hist8=st.carry[2] if use_stop else None)

@@ -20,6 +20,11 @@ included, as it was. A gather does no arithmetic and K1's result for a
 view does not depend on which views share its launch, so each scene of a
 mesh run is bitwise that scene of ``SceneTrainer.optimize_scene_batch``.
 
+The mesh's macro loop stays eager, where one device's scenes run as
+replays of a captured step (``engine/graphs.py``): a gloo collective
+cannot be captured into a CUDA graph, and the capture of NCCL's cannot be
+checked on one card.
+
 The JAX module's windowed tiers (its ``win_shapes`` branch) have no
 counterpart: K1's list of live tiles does that job on the card.
 """
@@ -177,7 +182,8 @@ def multichip_train_step(mesh, trainer: SceneTrainer):
     scenes' views, of which it keeps its own). ``step`` is ``SceneTrainer._run``'s
     ``view_grads``: it renders the local views (one K1 launch over all of
     them), gathers every view's loss and gradient over the ``views`` group
-    and returns macro step ``k``'s visited views in visit order. Under
+    and returns macro step ``k``'s visited views in visit order (``k``
+    the loop's device step counter). Under
     general accumulation (A ≠ V) each rank renders all of its views and
     the visited ones are picked after the gather.
     """
@@ -207,7 +213,7 @@ def multichip_train_step(mesh, trainer: SceneTrainer):
                               p2d.device) if A != shard.nviews else None)
         return params, (shard, local, visits)
 
-    def step(state, k: int, params):
+    def step(state, k, params):
         shard, local, visits = state
         losses, grads = trainer._per_view_grads(
             params, local.cameras, local.view_aux, local.poses_2d,
@@ -219,8 +225,9 @@ def multichip_train_step(mesh, trainer: SceneTrainer):
                 shard.views_group)
             grads = GaussianParams(*fields)
         if visits is not None:
-            losses = losses.index_select(1, visits[k])
-            grads = grads.map(lambda g: g.index_select(1, visits[k]))
+            at = visits.index_select(0, k.reshape(1)).reshape(-1)
+            losses = losses.index_select(1, at)
+            grads = grads.map(lambda g: g.index_select(1, at))
         return losses, grads
 
     return prepare, step

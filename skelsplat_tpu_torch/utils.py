@@ -3,6 +3,7 @@
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import random
 import sys
@@ -60,3 +61,86 @@ def searchForMaxIteration(folder):
     """The largest N of the ``*_N`` entries in ``folder``."""
     saved_iters = [int(fname.split("_")[-1]) for fname in os.listdir(folder)]
     return max(saved_iters)
+
+
+# ---------------------------------------------------------------------------
+# Trees of tensors, and the packed host-to-device copy
+# ---------------------------------------------------------------------------
+
+_LEAVES = (torch.Tensor, np.ndarray, np.generic)
+# where a fresh allocation of the caching allocator starts: a leaf packed at
+# such an offset is read (vector widths, library kernel choice) as a tensor
+# of its own would be, so results stay bitwise those of separate copies
+PUT_ALIGN = 512
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` applied to the leaves (tensors, numpy arrays and scalars) of
+    ``tree`` and the matching leaves of ``rest``, rebuilding tuples, lists,
+    named tuples and dataclasses; None stays None."""
+    if tree is None:
+        return None
+    if isinstance(tree, _LEAVES):
+        return fn(tree, *rest)
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: tree_map(fn, getattr(tree, f.name),
+                             *(getattr(r, f.name) for r in rest))
+            for f in dataclasses.fields(tree)})
+    if isinstance(tree, (tuple, list)):
+        out = [tree_map(fn, *xs) for xs in zip(tree, *rest)]
+        if hasattr(tree, "_fields"):
+            return type(tree)(*out)
+        return type(tree)(out)
+    raise TypeError(f"not a tree of tensors: {type(tree).__name__}")
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of ``tree`` in ``tree_map``'s order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def put_trees(trees, device):
+    """The trees with every host leaf (numpy array, numpy scalar, CPU
+    tensor) on ``device``, all moved by ONE copy (counterpart of
+    ``skelsplat_tpu/utils.py::put_trees``): the leaves are packed into one
+    buffer, each at a ``PUT_ALIGN``-byte boundary, which is pinned and
+    copied without blocking when ``device`` is a GPU. The device leaves are
+    views of that copy; tensors already on a GPU stay put."""
+    dev = torch.device(device)
+    packed = []   # (array, byte offset)
+    size = 0
+
+    def plan(x):
+        nonlocal size
+        if isinstance(x, torch.Tensor):
+            if x.device.type != "cpu" or dev.type == "cpu":
+                return x
+            x = x.detach().numpy()
+        a = np.asarray(x)
+        if not a.flags.c_contiguous:
+            a = a.copy()
+        packed.append((a, size))
+        size += -(-a.nbytes // PUT_ALIGN) * PUT_ALIGN
+        return np.int64(len(packed) - 1)   # a leaf standing for the view
+
+    planned = [tree_map(plan, t) for t in trees]
+    host = torch.empty(size + PUT_ALIGN, dtype=torch.uint8,
+                       pin_memory=dev.type == "cuda")
+    base = -host.data_ptr() % PUT_ALIGN
+    host = host[base:base + size]
+    host_np = host.numpy()
+    for a, at in packed:
+        host_np[at:at + a.nbytes] = a.reshape(-1).view(np.uint8)
+    buf = host.to(dev, non_blocking=True)
+
+    def view(i):
+        if isinstance(i, torch.Tensor):
+            return i
+        a, at = packed[int(i)]
+        dtype = torch.from_numpy(np.empty(0, a.dtype)).dtype
+        return buf[at:at + a.nbytes].view(dtype).reshape(a.shape)
+
+    return [tree_map(view, t) for t in planned]

@@ -153,14 +153,14 @@ def test_host_inputs_draws_dropout_from_a_generator(scene):
                            OptConfig(iterations=4),
                            TrainSettings(dropout=True), W, H, device="cpu")
     drop = trainer.host_inputs(pts, p2d, tcams,
-                               drop_generator=torch.Generator().manual_seed(1))[3]
+                               drop_generator=torch.Generator().manual_seed(1))[4]
     assert torch.equal(drop, thm.dropout_masks(
         torch.Generator().manual_seed(1), NV, N_J))
     off = SceneTrainer(SkeletonModel("h36m", N_J, scaling=3.0),
                        OptConfig(iterations=4), TrainSettings(), W, H,
                        device="cpu")
     assert not off.host_inputs(pts, p2d, tcams,
-                               drop_generator=torch.Generator())[3].any()
+                               drop_generator=torch.Generator())[4].any()
 
 
 def test_sigma_coverage_matches_jax():

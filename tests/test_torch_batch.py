@@ -325,7 +325,7 @@ def test_batched_sweep_matches_jax_cli(sweeps):
 
 def test_batched_sweep_matches_serial_sweep(sweeps):
     b, s = _summary(sweeps["port"]), _summary(sweeps["port_serial"])
-    assert s["pipelined_scenes"] is False and "pipelined_scenes" not in b
+    assert s["pipelined_scenes"] is True and "pipelined_scenes" not in b
     for t, r in zip(b["scenes"], s["scenes"]):
         assert t["scene_name"] == r["scene_name"]
         assert abs(t["abs_error"] - r["abs_error"]) < 1e-3

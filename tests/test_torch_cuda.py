@@ -172,6 +172,180 @@ def test_batched_macro_steps_make_no_host_sync(card):
     assert syncs[8] == syncs[40], syncs
 
 
+def _trainer(iters, eager=False, renderer="cuda", debug=False, **settings):
+    from skelsplat_tpu_torch.core.gaussians import SkeletonModel
+    from skelsplat_tpu_torch.engine.optim import OptConfig
+    from skelsplat_tpu_torch.engine.trainer import SceneTrainer, TrainSettings
+
+    return SceneTrainer(SkeletonModel("h36m", 17), OptConfig(iters),
+                        TrainSettings(**settings), W, H, renderer=renderer,
+                        eager=eager, debug=debug)
+
+
+def _assert_same(a, b):
+    """Every tensor of two (params, MacroHistory) results bitwise equal."""
+    from skelsplat_tpu_torch.utils import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb):
+        assert x.shape == y.shape and torch.equal(x, y)
+
+
+# (settings, run options): early stopping that fires (every window
+# "repeats" at a tolerance of 1e6), lean telemetry, A != V with a
+# checkpoint mid-run, and pipeline.debug's finite check between replays
+CAPTURE_CASES = {
+    "stop": ({"accumulation_steps": 4,
+              "early_stopping": "opt_early_stopping"}, {}),
+    "lean": ({"accumulation_steps": 4}, {"lean": True}),
+    "a_ne_v_checkpoint": ({"accumulation_steps": 3}, {"checkpoint": True}),
+    "debug": ({"accumulation_steps": 4, "debug": True}, {}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CAPTURE_CASES))
+def test_captured_scene_matches_eager(card, case, monkeypatch):
+    """optimize_scene through the captured step graph is bitwise the eager
+    loop, for the scene that captures the graph and for a later scene that
+    replays it from the first step; checkpoints are the eager ones too."""
+    import skelsplat_tpu_torch.engine.trainer as trainer_mod
+
+    settings, opts = CAPTURE_CASES[case]
+    if case == "stop":
+        monkeypatch.setattr(trainer_mod, "REPEAT_TOL", 1e6)
+    init, gt, p2d, cams_np = synthetic_inputs(2, W, H)
+    cams = compat.camera_from_numpy(cams_np, device="cpu")
+    runs = {}
+    for eager in (True, False):
+        tr = _trainer(48, eager=eager, **settings)
+        h8, out = None, []
+        for s in range(2):
+            saves = []
+            res = tr.optimize_scene(
+                init[s], p2d[s], cams, gt[s], lean=opts.get("lean", False),
+                hist8_init=h8,
+                checkpoint_iterations=[12, 24] if opts.get("checkpoint")
+                else (),
+                checkpoint_fn=lambda it, p, saves=saves: saves.append((it, p)))
+            h8 = res[1].hist8
+            out.append((res, saves))
+        runs[eager] = (tr, out)
+    tr, captured = runs[False]
+    assert tr.captures and len(tr.graphs) == 1
+    graph = next(iter(tr.graphs.values()))
+    assert graph.nodes > 0 and graph.replays == 2 * tr.n_macro - 3
+    for s, ((res_e, saves_e), (res_c, saves_c)) in enumerate(
+            zip(runs[True][1], captured)):
+        _assert_same(res_c, res_e)
+        assert [it for it, _ in saves_c] == [it for it, _ in saves_e]
+        _assert_same([p for _, p in saves_c], [p for _, p in saves_e])
+        if case == "stop":   # the second scene starts from a full window
+            assert int(res_c[1].stopped_at) == (8 if s == 0 else 1)
+        if opts.get("checkpoint"):
+            assert [it for it, _ in saves_c] == [12, 24]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("renderer", ["fused", "dense"])
+def test_fused_and_dense_renderers_stay_eager(card, renderer):
+    """The fused and dense renderers' steps (a cumprod, whose backward
+    syncs) run eagerly on the card by the trainer's rule: no graph, and
+    the results of an eager=True trainer."""
+    init, gt, p2d, cams_np = synthetic_inputs(1, W, H)
+    cams = compat.camera_from_numpy(cams_np, device="cpu")
+    loss = "l2_gaussian" if renderer == "fused" else "l1"
+    trainers = [_trainer(24, eager=eager, renderer=renderer,
+                         loss_function=loss) for eager in (True, False)]
+    out = [t.optimize_scene(init[0], p2d[0], cams, gt[0]) for t in trainers]
+    assert not trainers[1].captures and not trainers[1].graphs
+    _assert_same(out[1], out[0])
+
+
+@pytest.mark.cuda
+def test_captured_batch_matches_eager(card):
+    """optimize_scene_batch through its batch shape's graph is bitwise
+    the eager batch; a tail batch of another size is another graph."""
+    from skelsplat_tpu_torch.core.cameras import stack_cameras
+
+    init, gt, p2d, cams_np = synthetic_inputs(3, W, H)
+    cams = compat.camera_from_numpy(cams_np, device="cpu")
+    out = {}
+    for eager in (True, False):
+        tr = _trainer(40, eager=eager)
+        out[eager] = [tr.optimize_scene_batch(init[:b], p2d[:b],
+                                              stack_cameras([cams] * b),
+                                              gt[:b]) for b in (3, 2, 3)]
+        if not eager:
+            assert len(tr.graphs) == 2
+    for a, b in zip(out[False], out[True]):
+        _assert_same(a, b)
+
+
+@pytest.mark.cuda
+def test_captured_chain_matches_serial_loop(card):
+    """A 3-scene chain of captured replays is bitwise the eager serial
+    loop with the early-stop window carried, and its launch count is
+    n_macro per scene."""
+    from skelsplat_tpu_torch.ops import cuda_raster as cr
+
+    init, gt, p2d, cams_np = synthetic_inputs(3, W, H)
+    cams = compat.camera_from_numpy(cams_np, device="cpu")
+    kw = {"early_stopping": "opt_early_stopping"}
+    eager = _trainer(40, eager=True, **kw)
+    h8, serial = None, []
+    for s in range(3):
+        res = eager.optimize_scene(init[s], p2d[s], cams, gt[s],
+                                   hist8_init=h8)
+        h8 = res[1].hist8
+        serial.append(res)
+    tr = _trainer(40, **kw)
+    hins = [tr.host_inputs(init[s], p2d[s], cams, gt[s]) for s in range(3)]
+    tr.optimize_scene_chain(hins)     # captures the graph
+    torch.cuda.synchronize()
+    before = cr.launches["raster_loss_grad"]
+    pg, hg = tr.optimize_scene_chain(hins)
+    torch.cuda.synchronize()
+    assert cr.launches["raster_loss_grad"] - before == 3 * tr.n_macro
+    for s, (ps, hs) in enumerate(serial):
+        for f in ("xyz", "log_scales", "quats", "opacity_logit"):
+            assert torch.equal(getattr(pg, f)[s], getattr(ps, f))
+        assert torch.equal(hg.losses[s], hs.losses)
+        assert torch.equal(hg.error[s], hs.error)
+        assert torch.equal(hg.stopped_at[s], hs.stopped_at)
+    assert torch.equal(hg.hist8, h8)
+
+
+@pytest.mark.cuda
+def test_replays_make_no_host_sync_and_count_k1(card):
+    """A replay waits on nothing: 20 steps of a captured graph make no
+    synchronizing call, and each adds the graph's one K1 launch; a scene
+    of 500 iterations counts 125 K1 launches, the first one (which warms
+    up and captures its graph) too."""
+    from skelsplat_tpu_torch.ops import cuda_raster as cr
+
+    init, gt, p2d, cams_np = synthetic_inputs(2, W, H)
+    cams = compat.camera_from_numpy(cams_np, device="cpu")
+    tr = _trainer(500)
+    for s in range(2):
+        torch.cuda.synchronize()
+        before = dict(cr.launches)
+        tr.optimize_scene(init[s], p2d[s], cams, gt[s])
+        torch.cuda.synchronize()
+        assert cr.launches["raster_loss_grad"] - \
+            before["raster_loss_grad"] == 125
+        assert cr.launches["raster_loss"] == before["raster_loss"]
+    graph = next(iter(tr.graphs.values()))
+    assert graph.launches == {"raster_loss_grad": 1, "raster_loss": 0}
+    graph.state.step.zero_()     # 20 more steps from the first
+    torch.cuda.synchronize()
+    before = cr.launches["raster_loss_grad"]
+    assert _count_syncs(lambda: [graph.step() for _ in range(20)]) == 0
+    torch.cuda.synchronize()
+    assert cr.launches["raster_loss_grad"] == before + 20
+
+
 @pytest.fixture
 def nccl_world_of_one(card, monkeypatch):
     """A process group of this process alone on NCCL (torchrun's
