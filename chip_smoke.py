@@ -170,6 +170,21 @@ Phases, each failing the script (nonzero exit) on any error:
              scenes in its batches (8 + 2) through optimize_scene_batch,
              eager and captured, twice each: xyz bitwise, and bitwise
              phase 7's batched PLYs, s/scene of each second pass.
+13. renderers — the fused and dense renderers' scenes as captured
+             programs, in this call: (a) phase 8 (c)'s dense soft-argmax
+             scene (l1_masked_huber, phase 6's first scene) through
+             SceneTrainer.optimize_scene, captured (warm-up and capture),
+             eager, captured again: xyz bitwise, s/scene of each, the
+             graph's nodes and capture time, peak device memory of each
+             run, 0 K1 launches, the MPJPE beside phase 8 (c)'s and PR 6's
+             12.3404 mm; one eager macro step at full size under
+             torch.cuda.set_sync_debug_mode("error"); (b) phase 3's H36M
+             frame with renderer="fused" the same way (the sync check, then
+             captured, eager, captured: s/frame of each, bitwise); (c)
+             graft_entry.entry() on the card: the loss against the same
+             forward on the CPU (rtol GRAFT_RTOL), then the forward
+             captured as a graph and replayed, bitwise its eager value,
+             with the eager and replayed times by CUDA events.
 
 The line before the last is {"kernels": [...], "off_path_kernels": [...]}:
 "kernels" lists the kernels the paths launched (K1 on the frame, with
@@ -254,6 +269,10 @@ TOOLS_DIR = SMOKE_DIR / "tools"
 GRAPH_DIR = SMOKE_DIR / "graphs"
 GRAPH_FRAMES = 3   # phase 12 (a)'s timed frames of each mode, after a warm-up
 TOOLS_SCENES = 2
+# phase 13 (a): the dense soft-argmax scene's MPJPE in PR 6's run
+DENSE_MPJPE_PR6 = 12.3404
+# phase 13 (c): the entry's loss, card against CPU (the root entry's bar)
+GRAFT_RTOL = 1e-5
 # phase 11 (a, b): per-camera monocular predictions, the GT plus noise and a
 # per-camera offset (each N(0, MONO_SIGMA_MM) per coordinate: ~36 mm from
 # the GT per joint)
@@ -1073,8 +1092,8 @@ def dense_card_vs_cpu(root):
 
 
 def phase_options(card: str):
-    """Phase 8. Returns the K1 row's new fields and the largest |K1 − plain|
-    of its checks."""
+    """Phase 8. Returns the K1 row's new fields, the largest |K1 − plain|
+    of its checks and the dense soft-argmax scene's MPJPE."""
     import shutil
 
     from skelsplat_tpu_torch import eval as eval_cli
@@ -1114,6 +1133,7 @@ def phase_options(card: str):
           f"{N_VIEWS} views at {W}x{H}, on {card}", flush=True)
     assert counts == {"raster_loss_grad": 0, "raster_loss": 0}, counts
     assert len(results) == 1 and np.isfinite(res["absolute"]), res
+    dense_mpjpe = res["absolute"]
     dense_card_vs_cpu(h36m)
 
     # (d) confidence-weighted fusion through K1
@@ -1172,7 +1192,7 @@ def phase_options(card: str):
         assert im.shape == (pan_h, pan_w) and im.max() == 255, (p, im.shape)
     print(f"  render: {len(pngs)} PNGs of {pan_w}x{pan_h} under {out}",
           flush=True)
-    return row, err
+    return row, err, dense_mpjpe
 
 
 def _image_metrics_card_vs_cpu(cfg, run_dir, weights, card_scene):
@@ -1982,6 +2002,217 @@ def phase_graphs(card: str, cli_s_per_scene: float):
     return out
 
 
+def _macro_step_without_sync(trainer, inputs):
+    """One eager macro step of ``trainer`` over device ``inputs`` (a
+    ``host_inputs`` tuple after ``put_trees``) under the sync detector's
+    "error" mode, after one step that sets up autograd: a host sync
+    raises."""
+    init, p2d, cams, gt, drop, extent = inputs
+    params, aux = trainer._prepare(init, p2d, cams, drop)
+    nviews = p2d.shape[0]
+    state = trainer._loop_state(params, nviews, None, False)
+    step = trainer._step_fn(trainer._visited_grads(cams, aux, p2d, 1, nviews),
+                            nviews, gt, extent, False)
+    step(state)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def _captured_and_eager(make, inputs, runs=("captured", "eager",
+                                            "captured")):
+    """Scenes of ``inputs`` (device ``host_inputs``) through an eager and
+    a capturing trainer from ``make(eager)``, in the order ``runs``, each
+    timed through a host copy of xyz, with its peak device memory and its
+    K1 launches. Returns (trainers, per-run records)."""
+    from skelsplat_tpu_torch.ops import cuda_raster as cr
+
+    trainers = {m: make(m == "eager") for m in set(runs)}
+    assert trainers["captured"].captures and not trainers["eager"].captures
+    records = []
+    for m in runs:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in cr.launches:
+            cr.launches[k] = 0
+        t0 = time.perf_counter()
+        params, _ = trainers[m].optimize_scene(None, None, inputs=inputs,
+                                               lean=True)
+        xyz = params.xyz.cpu().numpy()
+        records.append({
+            "mode": m, "s": time.perf_counter() - t0, "xyz": xyz,
+            "peak_allocated": torch.cuda.max_memory_allocated(),
+            "peak_reserved": torch.cuda.max_memory_reserved(),
+            "launches": dict(cr.launches)})
+        assert records[-1]["launches"] == {"raster_loss_grad": 0,
+                                           "raster_loss": 0}, records[-1]
+        assert np.isfinite(xyz).all()
+    for r in records[1:]:
+        assert np.array_equal(r["xyz"], records[0]["xyz"]), \
+            (r["mode"], float(np.abs(r["xyz"] - records[0]["xyz"]).max()))
+    return trainers, records
+
+
+def _summary(trainers, records):
+    """s and peak memory of each run, and the graph's nodes and capture
+    time."""
+    (graph,) = trainers["captured"].graphs.values()
+    return {"runs": [{k: v for k, v in r.items() if k != "xyz"}
+                     for r in records],
+            "graph_nodes": graph.nodes,
+            "capture_s": graph.capture_seconds,
+            "instantiate_s": graph.instantiate_seconds,
+            "replays": graph.replays}
+
+
+def _time_graft_entry(card: str):
+    """Phase 13 (c): graft_entry.entry() on the card against the CPU, then
+    captured and replayed."""
+    from skelsplat_tpu_torch import graft_entry
+
+    fwd, args = graft_entry.entry()
+    fwd_cpu, args_cpu = graft_entry.entry(device="cpu")
+    with torch.no_grad():
+        loss = fwd(*args)
+        loss_cpu = float(fwd_cpu(*args_cpu))
+        torch.cuda.synchronize()
+        rel = abs(float(loss) / loss_cpu - 1)
+        assert rel <= GRAFT_RTOL, (float(loss), loss_cpu)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fwd(*args)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            static = fwd(*args)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(static, loss), (float(static), float(loss))
+        ms = {}
+        for name, run in (("eager", lambda: fwd(*args)),
+                          ("replay", graph.replay)):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            run()
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(20):
+                run()
+            end.record()
+            torch.cuda.synchronize()
+            ms[name] = start.elapsed_time(end) / 20
+        assert torch.equal(static, loss)
+    out = {"loss_card": float(loss), "loss_cpu": loss_cpu, "rel_diff": rel,
+           "ms_eager": ms["eager"], "ms_replay": ms["replay"]}
+    print(f"  (c) graft_entry.entry(): loss {float(loss)!r} on the card, "
+          f"{loss_cpu!r} on the CPU (rel diff {rel:.3g}); captured and "
+          f"replayed bitwise the eager value; {ms['eager']:.3f} ms eager, "
+          f"{ms['replay']:.3f} ms a replay (CUDA events, 20 calls) on "
+          f"{card}", flush=True)
+    return out
+
+
+def phase_renderers(card: str, dense_mpjpe_cli: float):
+    """Phase 13: the fused and dense renderers' scenes, captured against
+    eager, and the graft entry. Returns the JSON-able findings."""
+    from skelsplat_tpu_torch import compat
+    from skelsplat_tpu_torch.config import load_config
+    from skelsplat_tpu_torch.core.gaussians import SkeletonModel
+    from skelsplat_tpu_torch.data import cameras_io
+    from skelsplat_tpu_torch.engine import driver
+    from skelsplat_tpu_torch.engine.trainer import SceneTrainer
+    from skelsplat_tpu_torch.synthetic import mpjpe, synthetic_inputs
+    from skelsplat_tpu_torch.utils import put_trees
+
+    out = {"card": card}
+    # (a) phase 8 (c)'s dense soft-argmax scene
+    root = SMOKE_DIR / "synth-h36m"
+    cfg = load_config("h36m.yaml", [
+        f"dataset.data_root={root}",
+        f"training.loss_function={SOFTARGMAX_LOSS}"], make_run_dir=False)
+    _, rec = next(iter(_loader(cfg, 1)))
+    m = cfg.model
+    model = SkeletonModel("h36m", N_JOINTS, scaling=float(m.scaling),
+                          scaling_modifier=float(m.scaling_modifier),
+                          opacity_on=bool(m.opacity_on))
+    cams = cameras_io.build_camera_batch(rec.cameras, device="cpu")
+    W_, H_ = int(cams.width.max()), int(cams.height.max())
+
+    def make_dense(eager):
+        t = SceneTrainer(model, driver.opt_config_from(cfg.optimization),
+                         driver.train_settings_from(cfg.training), W_, H_,
+                         device="cuda", eager=eager)
+        assert t.renderer == "dense", t.renderer
+        return t
+
+    probe = make_dense(True)
+    inputs = put_trees([probe.host_inputs(rec.pose_3d, rec.poses_2d, cams,
+                                          rec.pose_3d_gt)], "cuda")[0]
+    _macro_step_without_sync(probe, inputs)
+    del probe
+    trainers, records = _captured_and_eager(make_dense, inputs)
+    err = mpjpe(records[-1]["xyz"], rec.pose_3d_gt)
+    out["a"] = _summary(trainers, records)
+    out["a"].update({"mpjpe_mm": err, "mpjpe_phase8_cli_mm": dense_mpjpe_cli,
+                     "mpjpe_pr6_mm": DENSE_MPJPE_PR6})
+    del trainers
+    (c1, e, c2) = records
+    print(f"  (a) dense {SOFTARGMAX_LOSS}, one scene ({ITERATIONS} "
+          f"iterations, {N_VIEWS} views at {W_}x{H_}): one eager macro step "
+          f"under sync debug mode \"error\" made no sync; captured "
+          f"{c1['s']:.6f} s/scene with warm-up and capture, eager "
+          f"{e['s']:.6f}, captured {c2['s']:.6f}; xyz bitwise; graph "
+          f"{out['a']['graph_nodes']} nodes, capture "
+          f"{out['a']['capture_s']:.4f} s, instantiate "
+          f"{out['a']['instantiate_s']:.4f} s; peak allocated "
+          f"{c1['peak_allocated']} / {e['peak_allocated']} / "
+          f"{c2['peak_allocated']} bytes, peak reserved "
+          f"{c1['peak_reserved']} / {e['peak_reserved']} / "
+          f"{c2['peak_reserved']} bytes (captured / eager / captured); 0 K1 "
+          f"launches; MPJPE {err:.4f} mm (phase 8 (c) through the CLI "
+          f"{dense_mpjpe_cli:.4f}, PR 6 {DENSE_MPJPE_PR6}) on {card}",
+          flush=True)
+    torch.cuda.empty_cache()
+
+    # (b) phase 3's H36M frame with the fused renderer
+    init, gt, p2d, cams_np = synthetic_inputs(1, W, H, n_views=N_VIEWS,
+                                              n_joints=N_JOINTS, seed=0)
+    fcams = compat.camera_from_numpy(cams_np, device="cpu")
+
+    def make_fused(eager):
+        return make_trainer(ITERATIONS, "fused", eager=eager)
+
+    probe = make_fused(True)
+    inputs = put_trees([probe.host_inputs(init[0], p2d[0], fcams, gt[0])],
+                       "cuda")[0]
+    _macro_step_without_sync(probe, inputs)
+    del probe
+    trainers, records = _captured_and_eager(make_fused, inputs)
+    out["b"] = _summary(trainers, records)
+    out["b"]["mpjpe_mm"] = mpjpe(records[-1]["xyz"], gt[0])
+    del trainers
+    (c1, e, c2) = records
+    print(f"  (b) fused, phase 3's H36M frame: one eager macro step under "
+          f"\"error\" made no sync; captured {c1['s']:.6f} s/frame with "
+          f"warm-up and capture, eager {e['s']:.6f}, captured "
+          f"{c2['s']:.6f}; xyz bitwise; graph {out['b']['graph_nodes']} "
+          f"nodes, capture {out['b']['capture_s']:.4f} s; peak allocated "
+          f"{c1['peak_allocated']} / {e['peak_allocated']} / "
+          f"{c2['peak_allocated']} bytes; MPJPE {out['b']['mpjpe_mm']:.4f} "
+          f"mm from {mpjpe(init[0], gt[0]):.4f} on {card}", flush=True)
+    assert out["b"]["mpjpe_mm"] < mpjpe(init[0], gt[0])
+    torch.cuda.empty_cache()
+
+    out["c"] = _time_graft_entry(card)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1996,7 +2227,7 @@ def main():
 
     from skelsplat_tpu_torch.tools.timing import card_line
 
-    print("[1/12] build", flush=True)
+    print("[1/13] build", flush=True)
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.load_library()
@@ -2019,10 +2250,10 @@ def main():
     print(f"  card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
 
-    print("[2/12] kernels against their plain versions", flush=True)
+    print("[2/13] kernels against their plain versions", flush=True)
     rows, timed, timed_b = phase_kernels()
 
-    print("[3/12] path: one H36M frame through SceneTrainer.optimize_scene",
+    print("[3/13] path: one H36M frame through SceneTrainer.optimize_scene",
           flush=True)
     counts, s_per_frame, (e0, e1) = phase_path(args.profile)
     for row in rows:
@@ -2031,10 +2262,10 @@ def main():
           f"{ITERATIONS} iterations, 4 views at {W}x{H}) on {card}",
           flush=True)
 
-    print("[4/12] renderer agreement: cuda vs fused", flush=True)
+    print("[4/13] renderer agreement: cuda vs fused", flush=True)
     phase_agree()
 
-    print("[5/12] measurement path: K3, roofline, kernel_probe, "
+    print("[5/13] measurement path: K3, roofline, kernel_probe, "
           "trace_summary", flush=True)
     k1, k2 = rows
     k3_row, k1_bound, k2_bound, k1_bound_b = phase_measure(
@@ -2045,7 +2276,7 @@ def main():
         k1_bound_b
     rows.append(k3_row)
 
-    print("[6/12] cli: train.main and eval.main over a synthetic H36M tree",
+    print("[6/13] cli: train.main and eval.main over a synthetic H36M tree",
           flush=True)
     cli_counts, s_per_scene, cli_res = phase_cli()
     k1["launches_cli"] = cli_counts["raster_loss_grad"]
@@ -2054,26 +2285,26 @@ def main():
           f"iterations, 4 views at {W}x{H}, save_images) on {card}",
           flush=True)
 
-    print("[7/12] batch: train.main at scene_batch 1 and 8 over a 10-scene "
+    print("[7/13] batch: train.main at scene_batch 1 and 8 over a 10-scene "
           "synthetic H36M tree", flush=True)
     batch_counts, _, _ = phase_batch(card, args.profile)
     k1["launches_batch"] = batch_counts["raster_loss_grad"]
 
-    print("[8/12] options: Panoptic and Occlusion-Person sweeps, the dense "
+    print("[8/13] options: Panoptic and Occlusion-Person sweeps, the dense "
           "soft-argmax path, confidence-weighted fusion, triangulation, "
           "render", flush=True)
-    fields, k1_err = phase_options(card)
+    fields, k1_err, dense_mpjpe = phase_options(card)
     k1.update(fields)
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_err)
 
-    print("[9/12] extras: eval.image_metrics (SSIM, LPIPS) card vs CPU, "
+    print("[9/13] extras: eval.image_metrics (SSIM, LPIPS) card vs CPU, "
           "bench_ssim, the native PLY codec, GaussianModel", flush=True)
     t0 = time.perf_counter()
     extras = phase_extras(card)
     print(f"  phase 9: {time.perf_counter() - t0:.1f} s; "
           f"{json.dumps(extras)}", flush=True)
 
-    print("[10/12] multichip: multichip_optimize on NCCL against the batch, "
+    print("[10/13] multichip: multichip_optimize on NCCL against the batch, "
           "the CLI on 2 ranks, dryrun_multichip, parity_study", flush=True)
     t0 = time.perf_counter()
     k1["launches_multichip"], multichip = phase_multichip(card, cli_res,
@@ -2081,20 +2312,27 @@ def main():
     print(f"  phase 10: {time.perf_counter() - t0:.1f} s; "
           f"{json.dumps(multichip)}", flush=True)
 
-    print("[11/12] tools: fused initial guesses on the card, a sweep from "
+    print("[11/13] tools: fused initial guesses on the card, a sweep from "
           "them, the triangulation guesses", flush=True)
     t0 = time.perf_counter()
     k1["launches_tools"], tools = phase_tools(card)
     print(f"  phase 11: {time.perf_counter() - t0:.1f} s; "
           f"{json.dumps(tools)}", flush=True)
 
-    print("[12/12] graphs: captured against eager (a frame, the chained "
+    print("[12/13] graphs: captured against eager (a frame, the chained "
           "CLI sweep against the serial one, the batched sweep)", flush=True)
     t0 = time.perf_counter()
     graphs = phase_graphs(card, s_per_scene)
     k1["launches_captured_frame"] = graphs["a"]["k1_records_profiler"]
     print(f"  phase 12: {time.perf_counter() - t0:.1f} s; "
           f"{json.dumps(graphs)}", flush=True)
+
+    print("[13/13] renderers: the dense and fused scenes captured against "
+          "eager, the graft entry", flush=True)
+    t0 = time.perf_counter()
+    renderers = phase_renderers(card, dense_mpjpe)
+    print(f"  phase 13: {time.perf_counter() - t0:.1f} s; "
+          f"{json.dumps(renderers)}", flush=True)
 
     print(card)
     print(json.dumps({

@@ -31,6 +31,9 @@ class ParamGroup:
         for key, value in self._dict.items():
             setattr(self, key, value)
 
+    def extract(self):
+        return self
+
     def to_dict(self):
         return {k: getattr(self, k) for k in self._dict}
 
@@ -81,8 +84,14 @@ class Config:
             if isinstance(values, dict):
                 setattr(self, group, ParamGroup(values))
 
+    def __contains__(self, key):
+        return key in self._data and key not in ("hydra", "defaults")
+
     def __getitem__(self, key):
         return getattr(self, key)
+
+    def get(self, key, default=None):
+        return getattr(self, key, default)
 
     def to_dict(self):
         return copy.deepcopy(self._data)
@@ -151,6 +160,15 @@ class ConfigHandler:
         self.optimization = cfg.optimization
         self.pipeline = cfg.pipeline
 
+    def extract(self):
+        return {
+            "dataset": self.dataset.extract(),
+            "training": self.training.extract(),
+            "debug": self.debug.extract(),
+            "model": self.model.extract(),
+            "optimization": self.optimization.extract(),
+            "pipeline": self.pipeline.extract(),
+        }
 
 
 class TriangulationConfigHandler:
@@ -161,3 +179,7 @@ class TriangulationConfigHandler:
         self.hydra_out = cfg.run_dir
         self.dataset = cfg.dataset
         self.debug = cfg.debug
+
+    def extract(self):
+        return {"dataset": self.dataset.extract(),
+                "debug": self.debug.extract()}

@@ -102,6 +102,13 @@ def init_params(initial_pose, scene_type: str, scaling: float,
                                          for a in (quats, opacity)))
 
 
+def one_hot_features(n_joints: int, device="cuda") -> torch.Tensor:
+    """The (N,N) one-hot joint-identity features: the dense renderer's
+    colors. The kernel renderer never materializes them."""
+    return torch.eye(n_joints, dtype=torch.float32,
+                     device=resolve_device(device))
+
+
 @dataclasses.dataclass(frozen=True)
 class SkeletonModel:
     """Static per-dataset model description."""
@@ -119,6 +126,11 @@ class SkeletonModel:
         scene_type = scene_type_of(data_root)
         return cls(scene_type, N_JOINTS[scene_type], scaling, scaling_modifier,
                    opacity_on)
+
+    def init(self, initial_pose, device="cuda") -> GaussianParams:
+        """This model's initial parameters from an (N,3) pose."""
+        return init_params(initial_pose, self.scene_type, self.scaling,
+                           self.scaling_modifier, device=device)
 
 
 def scene_type_of(data_root: str) -> str:

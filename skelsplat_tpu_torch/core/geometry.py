@@ -339,6 +339,35 @@ def tile_rect(point_image: torch.Tensor, radius: torch.Tensor, W: int, H: int):
     return torch.stack([min_x, min_y], dim=-1), torch.stack([max_x, max_y], dim=-1)
 
 
+def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.log(x / (1 - x))
+
+
+def strip_symmetric(sym: torch.Tensor) -> torch.Tensor:
+    """(…,3,3) symmetric matrix → (…,6) packed upper triangle."""
+    return torch.stack(
+        [sym[..., 0, 0], sym[..., 0, 1], sym[..., 0, 2],
+         sym[..., 1, 1], sym[..., 1, 2], sym[..., 2, 2]], dim=-1)
+
+
+strip_lowerdiag = strip_symmetric
+
+
+def build_scaling_rotation(s: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """L = R·diag(s)."""
+    return quat_to_rotmat(r) * s[..., None, :]
+
+
+def geom_transform_points(points: torch.Tensor,
+                          transf_matrix: torch.Tensor) -> torch.Tensor:
+    """Homogeneous point transform, row vectors times the (transposed)
+    matrix, with a 1e-7-regularized divide by w."""
+    ones = torch.ones(points.shape[:-1] + (1,), dtype=points.dtype,
+                      device=points.device)
+    out = torch.matmul(torch.cat([points, ones], dim=-1), transf_matrix)
+    return out[..., :3] / (out[..., 3:] + 1e-7)
+
+
 def expon_lr(step: torch.Tensor, lr_init: float, lr_final: float,
              lr_delay_steps: int = 0, lr_delay_mult: float = 1.0,
              max_steps: int = 1000000) -> torch.Tensor:

@@ -20,7 +20,7 @@ import numpy as np
 from skelsplat_tpu_torch import resolve_device
 from skelsplat_tpu_torch.core import geometry
 from skelsplat_tpu_torch.core.cameras import (FIELDS, Camera, camera_arrays,
-                                              camera_from_arrays)
+                                              camera_from_arrays, make_camera)
 
 # (width, height) per [subject S1..S11][camera 0..3]
 H36M_CAMERA_SIZE = [
@@ -58,6 +58,12 @@ class CameraInfo:
         """This camera's ``Camera`` fields as numpy arrays."""
         return camera_arrays(self.R, self.T, self.K, self.width, self.height,
                              uid=self.uid if uid is None else uid)
+
+    def to_camera(self, uid: int | None = None, device="cuda") -> Camera:
+        """This camera as a ``Camera`` on ``device``."""
+        return make_camera(self.R, self.T, self.K, self.width, self.height,
+                           uid=self.uid if uid is None else uid,
+                           device=device)
 
 
 def _quat_roundtrip_transpose(R: np.ndarray) -> np.ndarray:

@@ -4,8 +4,9 @@
 JAX runs a scene's prepare and all of its macro steps as one compiled
 program (``jit`` of a ``lax.scan``). On the card the counterpart is a CUDA
 graph: ``StepGraph`` captures ONE macro step (the forward over the visited
-views, K1, autograd, the gradient composition, Adam, the early-stop window
-and the history writes) and the trainer replays it once per macro step.
+views through any renderer, K1 or the fused or dense autograd renderer,
+the backward, the gradient composition, Adam, the early-stop window and
+the history writes) and the trainer replays it once per macro step.
 The step reads its index from a device counter that the step itself
 advances, so the same graph serves every step of every scene of its shape.
 

@@ -72,6 +72,14 @@ class AdamGroups:
             lr_delay_mult=c.position_lr_delay_mult,
             max_steps=c.position_lr_max_steps)
 
+    def group_lrs(self, iteration, spatial_lr_scale=1.0) -> GaussianParams:
+        """Each group's learning rate at ``iteration``: xyz's schedule as a
+        tensor, the constant groups' as floats (a captured step keeps them
+        as kernel arguments)."""
+        c = self.cfg
+        return GaussianParams(self.xyz_lr(iteration, spatial_lr_scale),
+                              c.scaling_lr, c.rotation_lr, c.opacity_lr)
+
     def step(self, params: GaussianParams, grads: GaussianParams,
              state: AdamState, iteration: torch.Tensor,
              spatial_lr_scale=1.0) -> tuple[GaussianParams, AdamState]:
@@ -79,13 +87,11 @@ class AdamGroups:
         which the step fires (it sets the xyz LR). With leading scene axes
         on ``params``, ``iteration``, ``state.t`` and ``spatial_lr_scale``
         hold one value per scene (or one for all)."""
-        c = self.cfg
         t = state.t + 1
         tf = t.to(torch.float32)
         bc1 = 1.0 - torch.pow(BETA1, tf)
         bc2 = 1.0 - torch.pow(BETA2, tf)
-        lrs = GaussianParams(self.xyz_lr(iteration, spatial_lr_scale),
-                             c.scaling_lr, c.rotation_lr, c.opacity_lr)
+        lrs = self.group_lrs(iteration, spatial_lr_scale)
 
         def upd(p, g, m, v, lr):
             lr, b1, b2 = (_per_scene(x, p) for x in (lr, bc1, bc2))

@@ -12,13 +12,12 @@ over macro steps that never waits on the device: every decision (early
 stop, freezing after it) is a tensor select, and the step reads its index
 from a device counter.
 
-On a GPU, with the kernel renderer, the scene is one device program, as
-JAX's jitted scene is: the macro step is captured once as a CUDA graph
+On a GPU the scene is one device program, as JAX's jitted scene is, for
+every renderer: the macro step is captured once as a CUDA graph
 (``engine/graphs.py``) and replayed ``n_macro`` times;
 ``SceneTrainer(eager=True)`` runs the same step op by op instead, for
-comparisons (the counterpart of ``jax.disable_jit()``). The "fused" and
-"dense" renderers stay eager (``SceneTrainer.captures`` says why). On the
-CPU the loop is eager.
+comparisons (the counterpart of ``jax.disable_jit()``). On the CPU the
+loop is eager.
 
 Early stopping is exact for every (nviews, accumulation_steps): the
 reference's 8-loss window check runs against a rolling history, and a
@@ -242,6 +241,12 @@ def extent_from_centers(centers) -> float:
     return float(diagonal * 1.1)
 
 
+def cameras_extent(cameras: Camera) -> float:
+    """``extent_from_centers`` of a camera batch's centers (one host copy
+    of them when they lie on the card)."""
+    return extent_from_centers(cameras.cam_center.detach().cpu().numpy())
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainSettings:
     """The ``training`` config group."""
@@ -310,12 +315,11 @@ class SceneTrainer:
     ``debug`` checks every macro step's losses, gradients and parameters
     for NaN and infinity, at one host sync a step (``_check_finite``).
 
-    On a GPU the kernel renderer's scenes run as replays of a captured
-    macro step, one graph per program shape, cached in ``graphs``;
-    ``eager`` runs the step op by op instead (the counterpart of
+    On a GPU every renderer's scenes run as replays of a captured macro
+    step, one graph per program shape, cached in ``graphs``; ``eager``
+    runs the step op by op instead (the counterpart of
     ``jax.disable_jit()``, for tests and comparisons: no config key sets
-    it). The "fused" and "dense" renderers and the mesh path
-    (``parallel/mesh.py``) always run eagerly (``captures``).
+    it). The mesh path (``parallel/mesh.py``) always runs eagerly.
     """
 
     def __init__(self, model: SkeletonModel, opt: OptConfig,
@@ -465,8 +469,7 @@ class SceneTrainer:
             drop_mask = hm.dropout_masks(drop_generator, nviews, n)
         else:
             drop_mask = np.zeros((nviews, n), dtype=bool)
-        extent = np.asarray(extent_from_centers(
-            cameras.cam_center.detach().cpu().numpy()), np.float32)
+        extent = np.asarray(cameras_extent(cameras), np.float32)
         return (initial_pose, poses_2d, cameras,
                 np.asarray(pose_3d_gt, dtype=np.float32), drop_mask, extent)
 
@@ -619,14 +622,11 @@ class SceneTrainer:
 
     @property
     def captures(self) -> bool:
-        """Whether scenes run as replays of captured macro steps: on a GPU
-        with the kernel renderer, unless the trainer was made with
-        ``eager=True``. The "fused" and "dense" renderers run eagerly:
-        their transmittance is a ``torch.cumprod``, whose backward asks
-        the host whether its input holds a zero, a sync that no captured
-        graph can hold."""
-        return (self.device.type == "cuda" and not self.eager
-                and self.renderer == "cuda")
+        """Whether scenes run as replays of captured macro steps: on a GPU,
+        for every renderer, unless the trainer was made with
+        ``eager=True``. Nothing else decides it: a step that cannot be
+        captured raises."""
+        return self.device.type == "cuda" and not self.eager
 
     def _loop_state(self, params, nviews: int, hist8_init, lean: bool):
         """The macro loop's initial state, every tensor its own buffer

@@ -26,6 +26,13 @@ from skelsplat_tpu_torch.ops import rasterizer
 FUSED_LOSSES = ("l2_gaussian", "l1_gaussian", "l1_masked")
 
 
+def fused_view_loss_available(loss_function: str,
+                              consistency_loss: str) -> bool:
+    """Whether this path implements ``loss_function`` (every consistency
+    loss is)."""
+    return loss_function in FUSED_LOSSES
+
+
 def _chunk_sums(pp: rasterizer.Preprocessed, spec: hm.HeatmapSpec, y0: int,
                 rows: int, W: int, loss_function: str):
     """Per-view masked error sum and mask count over rows [y0, y0+rows)."""
@@ -72,8 +79,11 @@ def fused_view_loss(params, cameras: Camera, spec: hm.HeatmapSpec, W: int,
     C = torch.zeros(pp.depth.shape[:-1], dtype=torch.int32,
                     device=pp.depth.device)
     for y0 in range(0, H, rows_per_chunk):
+        # the chunk draws no random numbers: no RNG state to save and
+        # restore around its recompute
         s, c = checkpoint(_chunk_sums, pp, spec, y0, rows_per_chunk, W,
-                          loss_function, use_reentrant=False)
+                          loss_function, use_reentrant=False,
+                          preserve_rng_state=False)
         S = S + s
         C = C + c
     return S / torch.clamp(C, min=1).to(torch.float32)

@@ -128,7 +128,8 @@ def heatmap_spec(xyz, cov6, poses_2d, cameras: Camera, W: int, H: int,
     if drop_mask is not None:
         amp = torch.where(torch.as_tensor(drop_mask, device=dev),
                           torch.zeros_like(amp), amp)
-    inf = torch.tensor(float("inf"), device=dev)
+    # a float, not a host-made tensor: its copy to the card would block
+    inf = float("inf")
     mn = (amp * torch.amin(torch.where(in_h, p1, inf), dim=-1)
           * torch.amin(torch.where(in_w, p2, inf), dim=-1))
     mx = (amp * torch.amax(torch.where(in_h, p1, -inf), dim=-1)

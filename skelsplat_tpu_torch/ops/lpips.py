@@ -68,6 +68,10 @@ BACKBONES = {
     },
 }
 
+# where committed weight npz files live (``tools/fetch_lpips_weights.py``
+# writes them)
+WEIGHTS_DIR = os.path.join(os.path.dirname(__file__), "lpips_weights")
+
 # the ImageNet normalization of lpipsPyTorch's networks
 _MEAN = np.array([-0.030, -0.088, -0.188], np.float32)
 _STD = np.array([0.458, 0.448, 0.450], np.float32)
@@ -214,8 +218,7 @@ def save_npz(path: str, weights: dict, net_type: str = "vgg"):
 def default_weights_path(net_type: str = "vgg") -> str | None:
     """Path of a committed weight npz (``ops/lpips_weights/{net}.npz``), or
     None."""
-    path = os.path.join(os.path.dirname(__file__), "lpips_weights",
-                        f"{net_type}.npz")
+    path = os.path.join(WEIGHTS_DIR, f"{net_type}.npz")
     return path if os.path.exists(path) else None
 
 

@@ -83,6 +83,46 @@ def _trail(x: torch.Tensor, n: int) -> torch.Tensor:
     return x.reshape(x.shape + (1,) * n)
 
 
+class _ExclusiveTransmittance(torch.autograd.Function):
+    """T_i = Π_{k<i} x_k along the slot axis ``dim`` of ``x`` = 1 − α.
+
+    The forward is a shifted inclusive ``torch.cumprod``, so its f32
+    rounding is the sequential T *= (1−α). ``torch.cumprod``'s own
+    backward asks the host whether its input holds a zero, a sync that no
+    captured graph can hold. This backward needs no such check: with
+    R_j = Σ_{i>j} g_i Π_{j<k<i} x_k, which R_j = g_{j+1} + x_{j+1}·R_{j+1}
+    gives from R_{N−1} = 0, dL/dx_j = T_j·R_j, a loop over the N ≤ 19
+    slots with no division, exact where a factor is 0 (``alpha_clamp``
+    keeps x ≥ 0.01 on the live path; the backward does not rely on it)."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int):
+        shifted = torch.cat([torch.ones_like(x.narrow(dim, 0, 1)),
+                             x.narrow(dim, 0, x.shape[dim] - 1)], dim=dim)
+        T = torch.cumprod(shifted, dim=dim)
+        ctx.save_for_backward(x, T)
+        ctx.dim = dim
+        return T
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, T = ctx.saved_tensors
+        dim = ctx.dim
+        n = x.shape[dim]
+        r = torch.zeros_like(grad.select(dim, 0))
+        out = [r] * n
+        for j in range(n - 2, -1, -1):
+            r = grad.select(dim, j + 1) + x.select(dim, j + 1) * r
+            out[j] = T.select(dim, j) * r
+        return torch.stack(out, dim=dim), None
+
+
+def exclusive_transmittance(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """(…,N,…) exclusive products Π_{k<i} x_k along ``dim``, with a
+    backward that makes no host sync (``_ExclusiveTransmittance``)."""
+    return _ExclusiveTransmittance.apply(x, dim)
+
+
 def composite_weights(pp: Preprocessed, dx, dy, tile_gate):
     """Front-to-back compositing weights of every Gaussian at a pixel set.
 
@@ -104,12 +144,7 @@ def composite_weights(pp: Preprocessed, dx, dy, tile_gate):
                              idx, dim=ax)
     gate_s = torch.take_along_dim(gate, idx, dim=ax)
     one_minus = 1.0 - a
-    # exclusive transmittance T_i = Π_{k<i}(1−a_k), as a shifted inclusive
-    # cumprod so its f32 rounding is the sequential T *= (1−α)
-    shifted = torch.cat([torch.ones_like(one_minus.narrow(ax, 0, 1)),
-                         one_minus.narrow(ax, 0, one_minus.shape[ax] - 1)],
-                        dim=ax)
-    T = torch.cumprod(shifted, dim=ax)
+    T = exclusive_transmittance(one_minus, ax)
     test = T * one_minus
     # the first gated slot whose transmittance would drop below T_MIN ends
     # the pixel before contributing

@@ -123,6 +123,37 @@ def test_latest_run_dir_matches(tmp_path):
         str(tmp_path / "2026-01-03" / "09-00-00")
 
 
+@pytest.mark.parametrize("name,trainer",
+                         [("h36m.yaml", True), ("triangulation.yaml", False)])
+def test_config_methods_match(name, trainer):
+    """``in``, ``get``, ``extract`` and the handlers' ``extract`` give the
+    JAX package's results, with the same types."""
+    j = jconfig.load_config(name, OVERRIDES, make_run_dir=False)
+    t = tconfig.load_config(name, OVERRIDES, make_run_dir=False)
+    for key in ("training", "dataset", "debug", "hydra", "defaults", "eval",
+                "render", "nope", 0):
+        assert (key in t) is (key in j), key
+    for key, default in (("training", None), ("nope", None), ("nope", 7),
+                         ("hydra", "x"), ("dataset", 3)):
+        jv, tv = j.get(key, default), t.get(key, default)
+        assert type(tv).__name__ == type(jv).__name__, key
+        if isinstance(jv, jconfig.ParamGroup):
+            assert tv.extract() is tv and tv.to_dict() == jv.to_dict()
+        else:
+            assert tv == jv
+    handlers = [(jconfig.TriangulationConfigHandler,
+                 tconfig.TriangulationConfigHandler)]
+    if trainer:
+        handlers.append((jconfig.ConfigHandler, tconfig.ConfigHandler))
+    for jh, th in handlers:
+        je, te = jh(j).extract(), th(t).extract()
+        assert list(te) == list(je)
+        for group in je:
+            assert isinstance(te[group], tconfig.ParamGroup)
+            assert te[group] is getattr(t, group)
+            assert te[group].to_dict() == je[group].to_dict()
+
+
 def test_ply_writers_byte_identical_and_readers_roundtrip(tmp_path):
     rng = np.random.default_rng(11)
     n = 17

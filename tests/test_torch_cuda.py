@@ -247,20 +247,97 @@ def test_captured_scene_matches_eager(card, case, monkeypatch):
             assert [it for it, _ in saves_c] == [12, 24]
 
 
+# the renderers' scenes, each with a loss it implements: dense with a
+# soft-argmax loss, the path renderer "auto" sends those losses through
+RENDERER_LOSSES = {"cuda": "l2_gaussian", "fused": "l2_gaussian",
+                   "dense": "l1_masked_huber"}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("renderer", ["fused", "dense"])
 def test_fused_and_dense_renderers_stay_eager(card, renderer):
-    """The fused and dense renderers' steps (a cumprod, whose backward
-    syncs) run eagerly on the card by the trainer's rule: no graph, and
-    the results of an eager=True trainer."""
+    """With eager=True the fused and dense renderers' steps run op by op
+    (no graph); without it their scenes are replays of a captured step,
+    and xyz and the history after 6 macro steps (3 warm-up steps, the
+    capture and 2 replays) are bitwise the eager trainer's, for one scene
+    and for a batch of 2 (a second graph)."""
+    from skelsplat_tpu_torch.core.cameras import stack_cameras
+
+    init, gt, p2d, cams_np = synthetic_inputs(2, W, H)
+    cams = compat.camera_from_numpy(cams_np, device="cpu")
+    trainers = [_trainer(24, eager=eager, renderer=renderer,
+                         loss_function=RENDERER_LOSSES[renderer])
+                for eager in (True, False)]
+    out = [t.optimize_scene(init[0], p2d[0], cams, gt[0]) for t in trainers]
+    assert not trainers[0].captures and not trainers[0].graphs
+    assert trainers[1].captures and len(trainers[1].graphs) == 1
+    graph = next(iter(trainers[1].graphs.values()))
+    assert graph.nodes > 0 and graph.replays == trainers[1].n_macro - 3
+    _assert_same(out[1], out[0])
+    batch = [t.optimize_scene_batch(init, p2d, stack_cameras([cams] * 2), gt)
+             for t in trainers]
+    assert len(trainers[1].graphs) == 2 and not trainers[0].graphs
+    _assert_same(batch[1], batch[0])
+
+
+@pytest.mark.cuda
+def test_every_renderer_captures_on_the_card(card):
+    """``captures`` is the one rule: true on the card for the three
+    renderers, false with eager=True and on the CPU."""
+    from skelsplat_tpu_torch.core.gaussians import SkeletonModel
+    from skelsplat_tpu_torch.engine.optim import OptConfig
+    from skelsplat_tpu_torch.engine.trainer import SceneTrainer, TrainSettings
+
+    for renderer, loss in RENDERER_LOSSES.items():
+        for device, eager, want in (("cuda", False, True),
+                                    ("cuda", True, False),
+                                    ("cpu", False, False)):
+            tr = SceneTrainer(SkeletonModel("h36m", 17), OptConfig(8),
+                              TrainSettings(loss_function=loss), W, H,
+                              renderer=renderer, device=device, eager=eager)
+            assert tr.captures is want, (renderer, device, eager)
+
+
+def _one_macro_step(tr, init, p2d, cams, gt):
+    """A scene's prepared loop state and its macro step, as the eager loop
+    runs it."""
+    from skelsplat_tpu_torch.utils import put_trees
+
+    init, p2d, cams, gt, drop, extent = put_trees(
+        [tr.host_inputs(init, p2d, cams, gt)], tr.device)[0]
+    params, aux = tr._prepare(init, p2d, cams, drop)
+    nviews = p2d.shape[0]
+    state = tr._loop_state(params, nviews, None, False)
+    step = tr._step_fn(tr._visited_grads(cams, aux, p2d, 1, nviews), nviews,
+                       gt, extent, False)
+    return lambda: step(state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("renderer", list(RENDERER_LOSSES))
+def test_macro_step_of_each_renderer_makes_no_host_sync(card, renderer):
+    """One eager macro step of each renderer under the sync detector's
+    "error" mode (a sync raises), after one step that sets up autograd;
+    then 10 replays of the captured step make no synchronizing call."""
     init, gt, p2d, cams_np = synthetic_inputs(1, W, H)
     cams = compat.camera_from_numpy(cams_np, device="cpu")
-    loss = "l2_gaussian" if renderer == "fused" else "l1"
-    trainers = [_trainer(24, eager=eager, renderer=renderer,
-                         loss_function=loss) for eager in (True, False)]
-    out = [t.optimize_scene(init[0], p2d[0], cams, gt[0]) for t in trainers]
-    assert not trainers[1].captures and not trainers[1].graphs
-    _assert_same(out[1], out[0])
+    loss = RENDERER_LOSSES[renderer]
+    step = _one_macro_step(_trainer(40, eager=True, renderer=renderer,
+                                    loss_function=loss),
+                           init[0], p2d[0], cams, gt[0])
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    tr = _trainer(40, renderer=renderer, loss_function=loss)
+    tr.optimize_scene(init[0], p2d[0], cams, gt[0])
+    graph = next(iter(tr.graphs.values()))
+    graph.state.step.zero_()
+    torch.cuda.synchronize()
+    assert _count_syncs(lambda: [graph.step() for _ in range(10)]) == 0
 
 
 @pytest.mark.cuda
