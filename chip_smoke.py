@@ -185,6 +185,36 @@ Phases, each failing the script (nonzero exit) on any error:
              forward on the CPU (rtol GRAFT_RTOL), then the forward
              captured as a graph and replayed, bitwise its eager value,
              with the eager and replayed times by CUDA events.
+14. prepare — each scene's prepare inside its captured program, in a
+             child process of this call that has never profiled (a
+             torch.profiler session leaves its hooks on, and a graph
+             replay's launch then costs ~10x the host time): (a) phase
+             3's captured frame in that process (s/frame), then a warm
+             optimize_scene_chain of 4 H36M scenes (opt_early_stopping)
+             and a warm optimize_scene_batch of 8 under
+             torch.cuda.set_sync_debug_mode("error"): no synchronizing
+             call, each returns with its device work still running (host
+             and device seconds by CUDA events), exactly 625 K1 launches;
+             (b) the vectorized prepare (_prepare_batch) against B
+             one-scene _prepare calls at B = 8, 32, 128 and 512 on the
+             H36M rig (and B = 8 at 3 views, where each scene's rows lie
+             at another alignment): bitwise, their times (host through a
+             synchronize, device by CUDA events) and the vectorized
+             prepare's peak memory; (c) the prepare programs of (a)'s two
+             shapes: nodes, capture and instantiate time, the memory
+             their capture reserved, a replay's time; (d) phase 7's 10
+             scenes through train.main chained (fetch_scenes=4: groups of
+             4, 4 and 2), with the TensorBoard log (the default) and
+             without it (+debug.tensorboard=false), the PLYs of the two
+             byte-equal: the sweep's wall time split by host timers
+             (loader, trainer set-up, cameras and artifacts, host_inputs,
+             the packed copy, the first group's dispatch and the later
+             ones', the fetch, PLY writes, TensorBoard scalars, eval.main)
+             and each group's device time by CUDA events, every group's
+             dispatch returning before its device work ends; each sweep's
+             s/scene against (a)'s s/frame. The main process then prints
+             phase 12 (b)'s chained s/scene against phase 12 (a)'s
+             captured s/frame.
 
 The line before the last is {"kernels": [...], "off_path_kernels": [...]}:
 "kernels" lists the kernels the paths launched (K1 on the frame, with
@@ -196,7 +226,9 @@ as "launches_panoptic", "launches_occlusion_person" and
 Occlusion-Person's shapes as "*_panoptic" and "*_occlusion_person"; on
 phase 10 (a)'s mesh run as "launches_multichip"; on phase 11 (b)'s sweep
 as "launches_tools"; in phase 12 (a)'s profiled captured frame as
-"launches_captured_frame"; K3 on the measurement path), "off_path_kernels" those
+"launches_captured_frame"; on phase 14 (a)'s checked chain and batch as
+"launches_chain_batch" and on its chained sweep (d) as
+"launches_chained_split"; K3 on the measurement path), "off_path_kernels" those
 the port holds that no path launches (K2, launches 0); the last line is
 {"ok": true, "device": {...}}. ``--profile`` adds a torch.profiler pass
 over one frame and over one batch of 8 frames (device time by kernel,
@@ -267,6 +299,10 @@ MULTICHIP_ATOL_MM = 1e-3
 PARITY_MM = 1e-2
 TOOLS_DIR = SMOKE_DIR / "tools"
 GRAPH_DIR = SMOKE_DIR / "graphs"
+PREPARE_DIR = SMOKE_DIR / "prepare"
+CHAIN_GROUP = 4    # phase 14's chained group, the driver's fetch_scenes
+PREPARE_BATCHES = (8, 32, 128, 512)   # phase 14 (b)'s batch sizes
+PHASE14_TIMEOUT_S = 400
 GRAPH_FRAMES = 3   # phase 12 (a)'s timed frames of each mode, after a warm-up
 TOOLS_SCENES = 2
 # phase 13 (a): the dense soft-argmax scene's MPJPE in PR 6's run
@@ -2213,21 +2249,431 @@ def phase_renderers(card: str, dense_mpjpe_cli: float):
     return out
 
 
+class _Split:
+    """Host seconds and calls of the functions a sweep runs, by name,
+    through wrappers patched onto their modules for one run."""
+
+    def __init__(self):
+        self.times, self._undo = {}, []
+
+    def wrap(self, owner, attr: str, name: str):
+        orig = getattr(owner, attr)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = orig(*args, **kwargs)
+            self.times.setdefault(name, []).append(time.perf_counter() - t0)
+            return out
+        setattr(owner, attr, timed)
+        self._undo.append((owner, attr, orig))
+
+    def seconds(self, name: str) -> float:
+        return float(sum(self.times.get(name, ())))
+
+    def restore(self):
+        for owner, attr, orig in reversed(self._undo):
+            setattr(owner, attr, orig)
+        self._undo.clear()
+
+
+def _chained_split(card: str, tensorboard: bool):
+    """Phase 14 (d): phase 7's 10-scene tree through train.main, chained
+    (fetch_scenes=4: groups of 4, 4 and 2, one pending), with or without
+    the TensorBoard log (without it, each scene's telemetry is its last
+    row), its wall time split by host timers around the sweep's functions
+    and CUDA events around each group's dispatch. Returns (K1 launches,
+    the split, the PLYs' bytes)."""
+    import shutil
+
+    from skelsplat_tpu_torch import eval as eval_cli
+    from skelsplat_tpu_torch.data import cameras_io, loader, ply
+    from skelsplat_tpu_torch.engine import driver
+    from skelsplat_tpu_torch.engine import trainer as trainer_mod
+
+    root = BATCH_DIR / "synth-h36m"
+    run_dir = PREPARE_DIR / ("chained_tb" if tensorboard else "chained")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    split = _Split()
+    groups = []     # (start event, end event, device busy at return)
+
+    def chain(orig):
+        def run(self, *args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig(self, *args, **kwargs)
+            end.record()
+            groups.append((start, end, not end.query()))
+            return out
+        return run
+
+    split.wrap(loader.DataLoader, "__init__", "loader")
+    split.wrap(cameras_io, "build_camera_batch", "cameras")
+    split.wrap(driver, "_save_scene_artifacts", "artifacts")
+    split.wrap(trainer_mod.SceneTrainer, "host_inputs", "host_inputs")
+    split.wrap(trainer_mod, "put_trees", "packed_copy")
+    orig_chain = trainer_mod.SceneTrainer.optimize_scene_chain
+    trainer_mod.SceneTrainer.optimize_scene_chain = chain(orig_chain)
+    split.wrap(trainer_mod.SceneTrainer, "optimize_scene_chain", "dispatch")
+    split.wrap(driver._Fetch, "__init__", "fetch_start")
+    split.wrap(driver._Fetch, "result", "fetch_wait")
+    split.wrap(ply, "write_gaussian_ply", "ply_writes")
+    split.wrap(driver, "_log_tb_history", "tensorboard")
+    split.wrap(trainer_mod.SceneTrainer, "__init__", "trainer_setup")
+    overrides = [f"dataset.data_root={root}",
+                 f"dataset.end_scene_id={BATCH_SCENES}"]
+    try:
+        t0 = time.perf_counter()
+        results, counts = _train([
+            "--config-name", "h36m.yaml", *overrides,
+            "debug.save_images=false", f"training.fetch_scenes={CHAIN_GROUP}",
+            f"+debug.tensorboard={str(tensorboard).lower()}",
+            f"hydra.run.dir={run_dir}"])
+        main_s = time.perf_counter() - t0
+    finally:
+        split.restore()
+        trainer_mod.SceneTrainer.optimize_scene_chain = orig_chain
+    t0 = time.perf_counter()
+    res = eval_cli.main(["--config-name", "h36m.yaml", *overrides,
+                         f"eval.output_path={run_dir}"])[ITERATIONS]
+    eval_s = time.perf_counter() - t0
+    n = len(results)
+    assert n == BATCH_SCENES and counts == {
+        "raster_loss_grad": n * ITERATIONS // 4, "raster_loss": 0}, counts
+    assert len(split.times["dispatch"]) == len(groups) == 3, split.times
+    summary = json.loads((run_dir / "train_summary.json").read_text())
+    device_s = [a.elapsed_time(b) / 1e3 for a, b, _ in groups]
+    sec = split.seconds
+    # the chain's own call holds its packed copy: dispatch is the rest; the
+    # first group's also warms up and captures the shape's programs
+    dispatch = [d - c for d, c in zip(split.times["dispatch"],
+                                      split.times["packed_copy"])]
+    in_sweep = {
+        "trainer set-up": sec("trainer_setup"),
+        "cameras + artifacts": sec("cameras") + sec("artifacts"),
+        "host_inputs": sec("host_inputs"),
+        "packed copy": sec("packed_copy"),
+        "dispatch, group 1 (warm-up steps, captures)": dispatch[0],
+        "dispatch, later groups (graph launches)": sum(dispatch[1:]),
+        "fetch start": sec("fetch_start"),
+        "wait for the result fetch": sec("fetch_wait"),
+        "PLY writes": sec("ply_writes"),
+        "TensorBoard scalars": sec("tensorboard")}
+    wall = summary["sweep_wall_seconds"]
+    parts = {"loader (DataLoader, before the sweep)": sec("loader"),
+             **in_sweep,
+             "the rest of the sweep": wall - sum(in_sweep.values())}
+    out = {"scenes": n, "groups": len(groups),
+           "train_main_s": main_s, "sweep_wall_s": wall,
+           "s_per_scene": summary["mean_seconds_per_scene"],
+           "split_s_per_scene": {k: v / n for k, v in parts.items()},
+           "dispatch_s_by_group": dispatch,
+           "eval_s_per_scene": eval_s / n,
+           "group_device_s": device_s,
+           "group_busy_at_return": [b for _, _, b in groups],
+           "device_s_per_scene": sum(device_s) / n,
+           "device_share_of_sweep": sum(device_s) / wall,
+           "mpjpe_mm": res["absolute"]}
+    print(f"  (d) phase 7's {n} scenes chained (fetch_scenes={CHAIN_GROUP}: "
+          f"{len(groups)} groups), TensorBoard {'on' if tensorboard else 'off'}"
+          f", through train.main: "
+          f"{out['s_per_scene']:.6f} s/scene of sweep wall "
+          f"({wall:.4f} s; train.main {main_s:.4f} s); per scene: "
+          + ", ".join(f"{k} {v / n * 1e3:.3f} ms" for k, v in parts.items())
+          + f"; eval.main {eval_s / n * 1e3:.3f} ms; dispatch by group "
+          f"{[round(d, 6) for d in dispatch]} s; device "
+          f"{out['device_s_per_scene']:.6f} s/scene by CUDA events around "
+          f"each group ({[round(d, 6) for d in device_s]} s), "
+          f"{out['device_share_of_sweep']:.4f} of the sweep wall; each "
+          f"group's dispatch returned with its device work still running: "
+          f"{out['group_busy_at_return']}; MPJPE {res['absolute']:.4f} mm "
+          f"on {card}", flush=True)
+    assert all(out["group_busy_at_return"]), out
+    plys = {p.name: p.read_bytes()
+            for p in sorted((run_dir / "point_cloud").rglob("*.ply"))}
+    assert len(plys) == n, sorted(plys)
+    return counts, out, plys
+
+
+def _median_call(fn, reps: int):
+    """(host seconds through a synchronize, device seconds by CUDA events)
+    of ``fn``, medians of ``reps`` calls after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    host, dev = [], []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+        dev.append(start.elapsed_time(end) / 1e3)
+    return float(np.median(host)), float(np.median(dev))
+
+
+def _same_tree(a, b) -> float:
+    """0.0 when two trees of tensors are bitwise equal, else the largest
+    absolute difference of a leaf that is not."""
+    from skelsplat_tpu_torch.utils import tree_leaves
+
+    worst = 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b), strict=True):
+        assert x.shape == y.shape, (x.shape, y.shape)
+        if not torch.equal(x, y):
+            worst = max(worst, float((x.double() - y.double()).abs().max()),
+                        1e-300)
+    return worst
+
+
+def phase_prepare(card: str):
+    """Phase 14: each scene's prepare inside its captured program. Returns
+    (K1 launches of (a)'s checked chain and batch, of (d)'s sweep, the
+    JSON-able findings)."""
+    from skelsplat_tpu_torch import compat
+    from skelsplat_tpu_torch.core.cameras import stack_cameras
+    from skelsplat_tpu_torch.core.gaussians import SkeletonModel
+    from skelsplat_tpu_torch.engine.optim import OptConfig
+    from skelsplat_tpu_torch.engine.trainer import SceneTrainer, TrainSettings
+    from skelsplat_tpu_torch.ops import cuda_raster as cr
+    from skelsplat_tpu_torch.synthetic import synthetic_inputs
+
+    out = {"card": card}
+    # (a) no host wait: a warm chain of 4 H36M scenes, a warm batch of 8;
+    # first, phase 3's captured frame in this process, to hold (d) against
+    init, gt, p2d, cams_np = synthetic_inputs(
+        SCENE_BATCH, W, H, n_views=N_VIEWS, n_joints=N_JOINTS, seed=0,
+        widths=MIXED_WIDTHS)
+    cams = compat.camera_from_numpy(cams_np, device="cpu")
+    cams_b = stack_cameras([cams] * SCENE_BATCH)
+    frame_tr = make_trainer(ITERATIONS, "cuda")
+    frames = []
+    for s in range(1 + TIMED_FRAMES):     # the first warms up and captures
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, _ = frame_tr.optimize_scene(init[s], p2d[s], cams, gt[s],
+                                            lean=True)
+        params.xyz.cpu()
+        frames.append(time.perf_counter() - t0)
+    s_frame = float(np.median(frames[1:]))
+    del frame_tr
+    tr = SceneTrainer(SkeletonModel("h36m", N_JOINTS, scaling=3.0),
+                      OptConfig(iterations=ITERATIONS),
+                      TrainSettings(early_stopping="opt_early_stopping"),
+                      W, H, renderer="cuda", device="cuda")
+    hins = [tr.host_inputs(init[s], p2d[s], cams, gt[s])
+            for s in range(CHAIN_GROUP)]
+    for _ in range(2):      # warm-up steps, then the captures
+        tr.optimize_scene_chain(hins)
+        tr.optimize_scene_batch(init, p2d, cams_b, gt)
+    torch.cuda.synchronize()
+    for k in cr.launches:
+        cr.launches[k] = 0
+    times = {}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for name, run in (("chain", lambda: tr.optimize_scene_chain(hins)),
+                          ("batch", lambda: tr.optimize_scene_batch(
+                              init, p2d, cams_b, gt))):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            params, _ = run()
+            host = time.perf_counter() - t0
+            end.record()
+            times[name] = (host, start, end, not end.query(), params)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches = dict(cr.launches)
+    assert launches == {"raster_loss_grad": (CHAIN_GROUP + 1) * ITERATIONS
+                        // 4, "raster_loss": 0}, launches
+    out["a"] = {"s_per_frame_captured": s_frame, "frames_s": frames[1:]}
+    for name, (host, start, end, busy, params) in times.items():
+        assert torch.isfinite(params.xyz).all(), name
+        out["a"][name] = {"host_s": host,
+                          "device_s": start.elapsed_time(end) / 1e3,
+                          "busy_at_return": busy}
+        assert busy, (name, out["a"])
+    a = out["a"]
+    print(f"  (a) phase 3's captured frame in this process: {s_frame:.6f} "
+          f"s/frame (median of {TIMED_FRAMES}: "
+          f"{[round(t, 6) for t in frames[1:]]}) on {card}", flush=True)
+    print(f"  (a) under torch.cuda.set_sync_debug_mode(\"error\"), no sync: "
+          f"a warm optimize_scene_chain of {CHAIN_GROUP} H36M scenes "
+          f"(opt_early_stopping) returned after {a['chain']['host_s']:.6f} s "
+          f"of host time against {a['chain']['device_s']:.6f} s of device "
+          f"time, a warm optimize_scene_batch of {SCENE_BATCH} after "
+          f"{a['batch']['host_s']:.6f} s against "
+          f"{a['batch']['device_s']:.6f} s; each returned with its work "
+          f"still running; K1 launches {launches['raster_loss_grad']} on "
+          f"{card}", flush=True)
+
+    # (c) the prepare programs of the two shapes (printed with (b))
+    out["c"] = {}
+    for key, graph in tr.graphs.items():
+        label = "one scene" if not key[0] else f"batch of {key[0][0]}"
+        prog = graph.prepare_program
+        reps = 20
+        graph.scene.zero_()     # a chain's collect left it past the group
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        graph.prepare()
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            graph.prepare()
+        end.record()
+        torch.cuda.synchronize()
+        out["c"][label] = {
+            "prepare_nodes": prog.nodes,
+            "prepare_capture_s": prog.capture_seconds,
+            "prepare_instantiate_s": prog.instantiate_seconds,
+            "prepare_pool_bytes": prog.pool_bytes,
+            "prepare_replay_ms": start.elapsed_time(end) / reps,
+            "collect_nodes": graph.collect_program.nodes,
+            "step_nodes": graph.nodes}
+
+    # (b) the vectorized prepare against B one-scene prepares
+    eager = make_trainer(ITERATIONS, "cuda", eager=True)
+    out["b"] = {}
+    for nviews, sizes in ((N_VIEWS, PREPARE_BATCHES), (3, (SCENE_BATCH,))):
+        for B in sizes:
+            init, _, p2d, cams_np = synthetic_inputs(
+                B, W, H, n_views=nviews, n_joints=N_JOINTS, seed=1,
+                widths=MIXED_WIDTHS[:nviews])
+            cams = compat.camera_from_numpy(cams_np, device="cuda")
+            cams_b = stack_cameras([cams] * B)
+            init_d = torch.as_tensor(init, device="cuda")
+            p2d_d = torch.as_tensor(p2d, device="cuda")
+            drop = torch.zeros((B, nviews, N_JOINTS), dtype=torch.bool,
+                               device="cuda")
+
+            def vectorized():
+                return eager._prepare_batch(init_d, p2d_d, cams_b, drop)
+
+            def loop():
+                return [eager._prepare(init_d[b], p2d_d[b], cams, drop[b])
+                        for b in range(B)]
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            params_b, aux_b = vectorized()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            worst = 0.0
+            for b, (params, aux) in enumerate(loop()):
+                worst = max(worst, _same_tree(
+                    (params_b.map(lambda x, b=b: x[b]),
+                     aux_b.take(slice(b * nviews, (b + 1) * nviews))),
+                    (params, aux)))
+            del params_b, aux_b
+            reps = 3 if B <= 128 else 2
+            v_host, v_dev = _median_call(vectorized, reps)
+            l_host, l_dev = _median_call(loop, reps)
+            rec = {"views": nviews, "scenes": B, "bitwise": worst == 0.0,
+                   "max_abs_diff": worst, "vectorized_s": v_host,
+                   "vectorized_device_s": v_dev, "loop_s": l_host,
+                   "loop_device_s": l_dev, "peak_bytes": peak}
+            out["b"][f"v{nviews}_b{B}"] = rec
+            print(f"  (b) {B} scenes x {nviews} views at {W}x{H}: the "
+                  f"vectorized prepare {v_host * 1e3:.3f} ms (device "
+                  f"{v_dev * 1e3:.3f} ms by CUDA events), {B} one-scene "
+                  f"prepares {l_host * 1e3:.3f} ms (device "
+                  f"{l_dev * 1e3:.3f}): {l_host / v_host:.1f}x; peak "
+                  f"{peak} bytes; bitwise the loop: {worst == 0.0} (largest "
+                  f"difference {worst:.3g}) on {card}", flush=True)
+            assert worst == 0.0, rec
+            torch.cuda.empty_cache()
+    for label, rec in out["c"].items():
+        print(f"  (c) the prepare program of {label}: {rec['prepare_nodes']} "
+              f"nodes, capture {rec['prepare_capture_s']:.4f} s, "
+              f"instantiate {rec['prepare_instantiate_s']:.4f} s, pool "
+              f"{rec['prepare_pool_bytes']} bytes, a replay "
+              f"{rec['prepare_replay_ms']:.4f} ms (CUDA events, 20); the "
+              f"collect {rec['collect_nodes']} nodes, the step "
+              f"{rec['step_nodes']} on {card}", flush=True)
+    del tr, eager
+    torch.cuda.empty_cache()
+
+    # (d) the split of a chained CLI sweep's wall time, with and without
+    # the TensorBoard log: the same clouds either way
+    out["d"], plys = {}, {}
+    for tb in (True, False):
+        label = "tensorboard" if tb else "no_tensorboard"
+        split_counts, out["d"][label], plys[tb] = _chained_split(card, tb)
+    assert plys[True] == plys[False]
+    for label, rec in out["d"].items():
+        print(f"  (d) chained sweep, {label}: {rec['s_per_scene']:.6f} "
+              f"s/scene against (a)'s captured frame {s_frame:.6f} s/frame: "
+              f"{rec['s_per_scene'] / s_frame:.4f}x on {card}", flush=True)
+    return launches["raster_loss_grad"], split_counts["raster_loss_grad"], out
+
+
+def phase_prepare_child() -> int:
+    """``--phase-14``: phase 14 alone, in a process of its own (the kernel
+    library already built, phase 7's tree on disk). Prints its lines, then
+    one JSON line of its findings and K1 launches."""
+    from skelsplat_tpu_torch.ops import _build
+    from skelsplat_tpu_torch.tools.timing import card_line
+
+    _build.build()
+    _build.load_library()
+    chain_batch, split, out = phase_prepare(card_line())
+    print(json.dumps({"phase14": {"launches_chain_batch": chain_batch,
+                                  "launches_chained_split": split,
+                                  "findings": out}}), flush=True)
+    return 0
+
+
+def phase_prepare_in_child():
+    """Phase 14 through ``--phase-14`` in a child process, which has never
+    run torch.profiler: a profiler session leaves the profiling hooks on in
+    its process, and every graph replay launch there costs ~10x its host
+    time (phases 5 and 12 profile). Returns the child's JSON findings; a
+    child that fails fails the phase."""
+    import subprocess
+
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--phase-14"], capture_output=True, text=True,
+                          timeout=PHASE14_TIMEOUT_S)
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        if not line.startswith('{"phase14"'):
+            print(line, flush=True)
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-8000:])
+        raise RuntimeError(f"phase 14's process exited {proc.returncode}")
+    return json.loads([ln for ln in lines
+                       if ln.startswith('{"phase14"')][-1])["phase14"]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="profile one frame with torch.profiler")
+    ap.add_argument("--phase-14", action="store_true",
+                    help="run phase 14 alone (the full run starts it so, "
+                         "in a process that has not profiled)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 1
+    if args.phase_14:
+        return phase_prepare_child()
 
     from skelsplat_tpu_torch.ops import _build
 
     from skelsplat_tpu_torch.tools.timing import card_line
 
-    print("[1/13] build", flush=True)
+    print("[1/14] build", flush=True)
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.load_library()
@@ -2250,10 +2696,10 @@ def main():
     print(f"  card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
 
-    print("[2/13] kernels against their plain versions", flush=True)
+    print("[2/14] kernels against their plain versions", flush=True)
     rows, timed, timed_b = phase_kernels()
 
-    print("[3/13] path: one H36M frame through SceneTrainer.optimize_scene",
+    print("[3/14] path: one H36M frame through SceneTrainer.optimize_scene",
           flush=True)
     counts, s_per_frame, (e0, e1) = phase_path(args.profile)
     for row in rows:
@@ -2262,10 +2708,10 @@ def main():
           f"{ITERATIONS} iterations, 4 views at {W}x{H}) on {card}",
           flush=True)
 
-    print("[4/13] renderer agreement: cuda vs fused", flush=True)
+    print("[4/14] renderer agreement: cuda vs fused", flush=True)
     phase_agree()
 
-    print("[5/13] measurement path: K3, roofline, kernel_probe, "
+    print("[5/14] measurement path: K3, roofline, kernel_probe, "
           "trace_summary", flush=True)
     k1, k2 = rows
     k3_row, k1_bound, k2_bound, k1_bound_b = phase_measure(
@@ -2276,7 +2722,7 @@ def main():
         k1_bound_b
     rows.append(k3_row)
 
-    print("[6/13] cli: train.main and eval.main over a synthetic H36M tree",
+    print("[6/14] cli: train.main and eval.main over a synthetic H36M tree",
           flush=True)
     cli_counts, s_per_scene, cli_res = phase_cli()
     k1["launches_cli"] = cli_counts["raster_loss_grad"]
@@ -2285,26 +2731,26 @@ def main():
           f"iterations, 4 views at {W}x{H}, save_images) on {card}",
           flush=True)
 
-    print("[7/13] batch: train.main at scene_batch 1 and 8 over a 10-scene "
+    print("[7/14] batch: train.main at scene_batch 1 and 8 over a 10-scene "
           "synthetic H36M tree", flush=True)
     batch_counts, _, _ = phase_batch(card, args.profile)
     k1["launches_batch"] = batch_counts["raster_loss_grad"]
 
-    print("[8/13] options: Panoptic and Occlusion-Person sweeps, the dense "
+    print("[8/14] options: Panoptic and Occlusion-Person sweeps, the dense "
           "soft-argmax path, confidence-weighted fusion, triangulation, "
           "render", flush=True)
     fields, k1_err, dense_mpjpe = phase_options(card)
     k1.update(fields)
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_err)
 
-    print("[9/13] extras: eval.image_metrics (SSIM, LPIPS) card vs CPU, "
+    print("[9/14] extras: eval.image_metrics (SSIM, LPIPS) card vs CPU, "
           "bench_ssim, the native PLY codec, GaussianModel", flush=True)
     t0 = time.perf_counter()
     extras = phase_extras(card)
     print(f"  phase 9: {time.perf_counter() - t0:.1f} s; "
           f"{json.dumps(extras)}", flush=True)
 
-    print("[10/13] multichip: multichip_optimize on NCCL against the batch, "
+    print("[10/14] multichip: multichip_optimize on NCCL against the batch, "
           "the CLI on 2 ranks, dryrun_multichip, parity_study", flush=True)
     t0 = time.perf_counter()
     k1["launches_multichip"], multichip = phase_multichip(card, cli_res,
@@ -2312,14 +2758,14 @@ def main():
     print(f"  phase 10: {time.perf_counter() - t0:.1f} s; "
           f"{json.dumps(multichip)}", flush=True)
 
-    print("[11/13] tools: fused initial guesses on the card, a sweep from "
+    print("[11/14] tools: fused initial guesses on the card, a sweep from "
           "them, the triangulation guesses", flush=True)
     t0 = time.perf_counter()
     k1["launches_tools"], tools = phase_tools(card)
     print(f"  phase 11: {time.perf_counter() - t0:.1f} s; "
           f"{json.dumps(tools)}", flush=True)
 
-    print("[12/13] graphs: captured against eager (a frame, the chained "
+    print("[12/14] graphs: captured against eager (a frame, the chained "
           "CLI sweep against the serial one, the batched sweep)", flush=True)
     t0 = time.perf_counter()
     graphs = phase_graphs(card, s_per_scene)
@@ -2327,12 +2773,28 @@ def main():
     print(f"  phase 12: {time.perf_counter() - t0:.1f} s; "
           f"{json.dumps(graphs)}", flush=True)
 
-    print("[13/13] renderers: the dense and fused scenes captured against "
+    print("[13/14] renderers: the dense and fused scenes captured against "
           "eager, the graft entry", flush=True)
     t0 = time.perf_counter()
     renderers = phase_renderers(card, dense_mpjpe)
     print(f"  phase 13: {time.perf_counter() - t0:.1f} s; "
           f"{json.dumps(renderers)}", flush=True)
+
+    print("[14/14] prepare: the chain and the batch with no host wait, the "
+          "vectorized prepare, the prepare programs, a chained sweep's "
+          "split", flush=True)
+    t0 = time.perf_counter()
+    child = phase_prepare_in_child()
+    k1["launches_chain_batch"] = child["launches_chain_batch"]
+    k1["launches_chained_split"] = child["launches_chained_split"]
+    s_chain = graphs["b"]["s_per_scene_chained"]
+    s_frame = graphs["a"]["s_per_frame_captured"]
+    print(f"  in this process (after the profiler of phases 5 and 12): "
+          f"phase 12 (b)'s chained sweep {s_chain:.6f} s/scene against "
+          f"phase 12 (a)'s captured frame {s_frame:.6f} s/frame: "
+          f"{s_chain / s_frame:.4f}x on {card}", flush=True)
+    print(f"  phase 14: {time.perf_counter() - t0:.1f} s; "
+          f"{json.dumps(child['findings'])}", flush=True)
 
     print(card)
     print(json.dumps({

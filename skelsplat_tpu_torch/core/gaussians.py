@@ -73,33 +73,42 @@ class GaussianParams:
 
 def init_params(initial_pose, scene_type: str, scaling: float,
                 scaling_modifier: float = 1.0, device="cuda") -> GaussianParams:
-    """Seed parameters from an (N,3) initial pose: means = the pose,
-    log-scales = ``scaling`` (extremity joints × ``scaling_modifier``),
-    identity quaternions, opacity pinned at 1. ``scaling <= 0`` uses the
-    point coordinates as raw scales, as the reference does. The pose is
-    numpy or a tensor (on ``device`` already, as a packed transfer leaves
-    it); the parameters are new tensors either way."""
+    """Seed parameters from an (…,N,3) initial pose (leading scene axes
+    allowed; a flat (3N,) pose is one scene): means = the pose, log-scales
+    = ``scaling`` (extremity joints × ``scaling_modifier``), identity
+    quaternions, opacity pinned at 1. ``scaling <= 0`` uses the point
+    coordinates as raw scales, as the reference does. The pose is numpy or
+    a tensor (on ``device`` already, as a packed transfer leaves it); the
+    parameters are new tensors either way. The constants are made on the
+    device (fills, no host copy), so the call can be captured."""
     dev = resolve_device(device)
     if isinstance(initial_pose, torch.Tensor):
-        xyz = initial_pose.detach().to(dev, torch.float32).reshape(-1, 3)
-        xyz = xyz.clone()
+        xyz = initial_pose.detach().to(dev, torch.float32)
     else:
-        xyz = torch.as_tensor(
-            np.asarray(initial_pose, dtype=np.float32).reshape(-1, 3),
-            device=dev)
-    n = xyz.shape[0]
+        xyz = torch.as_tensor(np.asarray(initial_pose, dtype=np.float32),
+                              device=dev)
+    lead = tuple(xyz.shape[:-2]) if xyz.dim() > 1 else ()
+    xyz = xyz.reshape(lead + (-1, 3)).clone()
+    n = xyz.shape[-2]
+
+    def full(width, value):
+        return torch.full(lead + (n, width), value, dtype=torch.float32,
+                          device=dev)
+
     if scaling > 0.0:
-        scales = np.full((n, 3), scaling, dtype=np.float32)
-        idx = [i for i in EXTREMITY_JOINTS.get(scene_type, []) if i < n]
-        scales[idx, :] *= scaling_modifier
-        scales = torch.as_tensor(scales, device=dev)
+        scales = full(3, scaling)
+        # the extremity value as numpy rounds it: scaling in float32, times
+        # the modifier in float32
+        boost = np.full((1,), scaling, dtype=np.float32)
+        boost *= scaling_modifier
+        for i in EXTREMITY_JOINTS.get(scene_type, []):
+            if i < n:
+                scales[..., i, :].fill_(float(boost[0]))
     else:
         scales = xyz.clone()
-    quats = np.zeros((n, 4), dtype=np.float32)
-    quats[:, 0] = 1.0
-    opacity = np.full((n, 1), OPACITY_INIT_LOGIT, dtype=np.float32)
-    return GaussianParams(xyz, scales, *(torch.as_tensor(a, device=dev)
-                                         for a in (quats, opacity)))
+    quats = full(4, 0.0)
+    quats[..., 0].fill_(1.0)
+    return GaussianParams(xyz, scales, quats, full(1, OPACITY_INIT_LOGIT))
 
 
 def one_hot_features(n_joints: int, device="cuda") -> torch.Tensor:
@@ -128,7 +137,7 @@ class SkeletonModel:
                    opacity_on)
 
     def init(self, initial_pose, device="cuda") -> GaussianParams:
-        """This model's initial parameters from an (N,3) pose."""
+        """This model's initial parameters from an (…,N,3) pose."""
         return init_params(initial_pose, self.scene_type, self.scaling,
                            self.scaling_modifier, device=device)
 

@@ -13,21 +13,25 @@ stop, freezing after it) is a tensor select, and the step reads its index
 from a device counter.
 
 On a GPU the scene is one device program, as JAX's jitted scene is, for
-every renderer: the macro step is captured once as a CUDA graph
-(``engine/graphs.py``) and replayed ``n_macro`` times;
-``SceneTrainer(eager=True)`` runs the same step op by op instead, for
-comparisons (the counterpart of ``jax.disable_jit()``). On the CPU the
-loop is eager.
+every renderer: the scene's prepare and its macro step are captured once
+per program shape as CUDA graphs (``engine/graphs.py``), and a scene is
+one prepare replay and ``n_macro`` step replays; between the scenes of a
+chain the host launches graphs only, and a call returns without waiting
+on the card. ``SceneTrainer(eager=True)`` runs the same prepare and step
+op by op instead, for comparisons (the counterpart of
+``jax.disable_jit()``). On the CPU the loop is eager.
 
 Early stopping is exact for every (nviews, accumulation_steps): the
 reference's 8-loss window check runs against a rolling history, and a
 mid-macro stop steps with the reference's mixed fresh/stale gradients.
 
 ``optimize_scene_batch`` runs B independent scenes of one (W, H, V) shape
-at once: each macro step is one preprocess and one kernel launch over the
-B·A visited views and one backward, and compose, Adam and the early-stop
-window are per scene. The composition functions take leading scene axes
-on every carried tensor, so one scene and a batch run the same code.
+at once: one vectorized prepare over the scene axis (the port of JAX's
+``jax.vmap(prepare)``), then each macro step is one preprocess and one
+kernel launch over the B·A visited views and one backward, and compose,
+Adam and the early-stop window are per scene. The prepare and the
+composition functions take leading scene axes on every tensor, so one
+scene and a batch run the same code.
 ``optimize_scene_chain`` runs G scenes one after another with the
 early-stop window carried between them, each scene bitwise its serial run.
 """
@@ -51,7 +55,8 @@ from skelsplat_tpu_torch.ops import heatmaps as hm
 from skelsplat_tpu_torch.ops import rasterizer
 from skelsplat_tpu_torch.ops.fused import FUSED_LOSSES, make_fused_view_loss
 from skelsplat_tpu_torch.ops.similarity import confidence_weighted_mean
-from skelsplat_tpu_torch.utils import put_trees, tree_leaves, tree_map
+from skelsplat_tpu_torch.utils import (put_trees, stack_trees, tree_leaves,
+                                       tree_map)
 
 REPEAT_TOL = 1e-6  # OptEarlyStopping repeat_tolerance
 RENDERERS = ("auto", "cuda", "fused", "dense")
@@ -315,11 +320,13 @@ class SceneTrainer:
     ``debug`` checks every macro step's losses, gradients and parameters
     for NaN and infinity, at one host sync a step (``_check_finite``).
 
-    On a GPU every renderer's scenes run as replays of a captured macro
-    step, one graph per program shape, cached in ``graphs``; ``eager``
-    runs the step op by op instead (the counterpart of
-    ``jax.disable_jit()``, for tests and comparisons: no config key sets
-    it). The mesh path (``parallel/mesh.py``) always runs eagerly.
+    On a GPU every renderer's scenes run as replays of captured programs
+    (a scene's prepare, its macro step and a chain's collect), one
+    ``graphs.StepGraph`` per program shape, cached in ``graphs``;
+    ``eager`` runs the prepare and the step op by op instead (the
+    counterpart of ``jax.disable_jit()``, for tests and comparisons: no
+    config key sets it). The mesh path (``parallel/mesh.py``) always runs
+    eagerly.
     """
 
     def __init__(self, model: SkeletonModel, opt: OptConfig,
@@ -381,9 +388,13 @@ class SceneTrainer:
         return main + cons * self.settings.lambda_consistency
 
     def _prepare(self, initial_pose, poses_2d, cameras, drop_mask):
-        """Parameters (from the (N,3) ``initial_pose``, numpy or a device
-        tensor) and the GT state from the INITIAL covariance, once per
-        scene."""
+        """Parameters (from the (…,N,3) ``initial_pose``, numpy or a
+        device tensor) and the GT state from the INITIAL covariance, once
+        per scene (JAX's ``prepare``). Leading scene axes on every input
+        prepare a batch in one vectorized pass: parameters (…,N,·), view
+        aux over the flattened scenes' views (scene b's view v at b·V + v).
+        No host copy and no sync when the inputs lie on the device, so the
+        prepare can be captured."""
         m = self.model
         params = init_params(initial_pose, m.scene_type, m.scaling,
                              m.scaling_modifier, device=self.device)
@@ -395,21 +406,20 @@ class SceneTrainer:
             view_aux = cuda_raster.view_profiles(spec, self.W, self.H)
         else:
             view_aux = spec
+        scene_axes = poses_2d.dim() - 3
+        if scene_axes:
+            view_aux = tree_map(
+                lambda x: x.reshape((-1,) + tuple(x.shape[scene_axes + 1:])),
+                view_aux)
         return params, view_aux
 
     def _prepare_batch(self, initial_b, poses_2d_b, cameras_b, drop_b):
-        """``_prepare`` of each scene (its parameters and its GT state from
-        its own initial covariance), once per batch: parameters stacked
-        (B,N,·), view aux concatenated over the B·V views (scene b's view
-        v at b·V + v)."""
-        per = [self._prepare(initial_b[b], poses_2d_b[b], cameras_b.take(b),
-                             drop_b[b]) for b in range(len(initial_b))]
-        params = per[0][0].map(lambda *xs: torch.stack(xs),
-                               *(p for p, _ in per[1:]))
-        auxes = [a for _, a in per]
-        if isinstance(auxes[0], torch.Tensor):    # dense GT heatmaps
-            return params, torch.cat(auxes)
-        return params, type(auxes[0])(*map(torch.cat, zip(*auxes)))
+        """The batch's prepare (JAX's ``jax.vmap(prepare)``): ``_prepare``
+        over a leading scene axis, one vectorized pass for the B scenes,
+        each from its own initial covariance. Returns parameters (B,N,·)
+        and view aux over the B·V views (scene b's view v at b·V + v),
+        each scene's bitwise its own ``_prepare``."""
+        return self._prepare(initial_b, poses_2d_b, cameras_b, drop_b)
 
     def _per_view_grads(self, params, cameras, view_aux, poses_2d, A):
         """(losses (…,A), grads (…,A,N,·)) of the visited views of a scene,
@@ -510,16 +520,23 @@ class SceneTrainer:
 
     def _optimize_inputs(self, inputs, checkpoint_iterations=(),
                          checkpoint_fn=None, hist8_init=None,
-                         lean: bool = False, keep: bool = True):
-        """``optimize_scene`` of device ``inputs``. With ``keep`` false
-        the results of a captured run are the graph's own buffers, valid
-        until its next scene (``optimize_scene_chain`` copies them)."""
+                         lean: bool = False):
+        """``optimize_scene`` of device ``inputs``: the captured prepare
+        and steps where the trainer ``captures``, else the eager ones."""
         init, poses_2d, cameras, pose_3d_gt, drop_mask, extent = inputs
+        nviews = poses_2d.shape[0]
+        if self.captures:
+            graph = self._run_captured(
+                tree_map(lambda x: x.unsqueeze(0), inputs), 1, (), nviews,
+                hist8_init, lean, checkpoint_iterations, checkpoint_fn)
+            return tree_map(torch.clone, self._results(
+                graph.state, graph.inputs[3], lean))
         params, view_aux = self._prepare(init, poses_2d, cameras, drop_mask)
-        return self._run_scenes(params, cameras, view_aux, poses_2d,
-                                pose_3d_gt, extent, 1, poses_2d.shape[0],
-                                checkpoint_iterations, checkpoint_fn,
-                                hist8_init, lean, keep)
+        return self._run(
+            params, self._visited_grads(cameras, view_aux, poses_2d, 1,
+                                        nviews),
+            nviews, pose_3d_gt, extent, checkpoint_iterations,
+            checkpoint_fn, hist8_init, lean)
 
     def optimize_scene_chain(self, host_inputs_list, hist8_init=None,
                              lean: bool = False):
@@ -529,9 +546,14 @@ class SceneTrainer:
         copy, and the early-stop window (``hist8``) passes from scene to
         scene on the device, so each scene's results are bitwise those of
         ``optimize_scene`` in a loop with the window carried. On the card
-        each scene is ``n_macro`` replays of the cached step graph, its
-        results copied into the group's stacked outputs before the next
-        scene is loaded; on the CPU it is the eager loop.
+        the group's inputs are copied once into the shape's static group
+        buffers, and each scene is a replay of the captured prepare (which
+        picks the scene by a device counter), ``n_macro`` step replays and
+        a replay of the collect (its results into the group's stacked
+        outputs, its window into the next scene's seed): between two
+        scenes the host launches graphs only, and the call returns without
+        waiting on the card. On the CPU, or with ``eager``, it is the
+        eager loop.
 
         ``host_inputs_list``: ``host_inputs`` tuples. Returns (params,
         MacroHistory) with a leading G axis on every field but ``hist8``,
@@ -541,26 +563,31 @@ class SceneTrainer:
         """
         use_stop = self.settings.early_stopping == "opt_early_stopping"
         hist8 = hist8_init if use_stop else None
-        group = put_trees(list(host_inputs_list), self.device)
-        out = None
-        for g, inputs in enumerate(group):
+        if self.captures:
+            G = len(host_inputs_list)
+            group = put_trees([stack_trees(list(host_inputs_list))],
+                              self.device)[0]
+            graph = self._run_captured(group, G, (), group[1].shape[1],
+                                       hist8, lean, collect=True)
+            (params_g, history_g), hist8 = graph.collected(G)
+            return params_g, dataclasses.replace(history_g, hist8=hist8)
+        results = []
+        for inputs in put_trees(list(host_inputs_list), self.device):
             params, history = self._optimize_inputs(
-                inputs, hist8_init=hist8, lean=lean, keep=False)
-            res = (params, dataclasses.replace(history, hist8=None))
-            if out is None:
-                out = tree_map(lambda x: x.new_empty((len(group),)
-                                                     + tuple(x.shape)), res)
-            tree_map(lambda o, x, g=g: o[g].copy_(x), out, res)
+                inputs, hist8_init=hist8, lean=lean)
+            results.append((params, dataclasses.replace(history, hist8=None)))
             hist8 = history.hist8
-        params_g, history_g = out
+        params_g, history_g = tree_map(lambda *xs: torch.stack(xs),
+                                       *results)
         return params_g, dataclasses.replace(
             history_g, hist8=None if hist8 is None else hist8.clone())
 
     def optimize_scene_batch(self, initial_b, poses_2d_b, cameras_b: Camera,
                              pose_3d_gt_b=None, lean: bool = False):
         """Run B independent scenes of this trainer's (W, H) and one view
-        count at once: every macro step is one preprocess, one kernel launch
-        and one backward over the B·A visited views, and each scene
+        count at once: one vectorized prepare (``_prepare_batch``), then
+        every macro step is one preprocess, one kernel launch and one
+        backward over the B·A visited views, and each scene
         composes its gradients, steps Adam (with its own extent as the xyz
         LR scale) and, under early stopping, stops and freezes on its own
         8-loss window, which starts at +inf. Per scene the results are
@@ -586,15 +613,22 @@ class SceneTrainer:
         extent = np.asarray([extent_from_centers(c) for c in centers],
                             np.float32)
         drop_b = np.zeros((B, nviews, n), dtype=bool)
-        initial_b, poses_2d_b, cameras_b, pose_3d_gt_b, drop_b, extent = \
-            put_trees([(initial_b, poses_2d_b, cameras_b, pose_3d_gt_b,
-                        drop_b, extent)], self.device)[0]
+        batch = put_trees([(initial_b, poses_2d_b, cameras_b, pose_3d_gt_b,
+                            drop_b, extent)], self.device)[0]
+        if self.captures:
+            graph = self._run_captured(
+                tree_map(lambda x: x.unsqueeze(0), batch), 1, (B,), nviews,
+                None, lean)
+            return tree_map(torch.clone, self._results(
+                graph.state, graph.inputs[3], lean))
+        initial_b, poses_2d_b, cameras_b, pose_3d_gt_b, drop_b, extent = batch
         params, view_aux = self._prepare_batch(initial_b, poses_2d_b,
                                                cameras_b, drop_b)
-        return self._run_scenes(
-            params, flatten_scenes(cameras_b), view_aux,
-            poses_2d_b.reshape((B * nviews,) + (n, 2)), pose_3d_gt_b, extent,
-            B, nviews, lean=lean)
+        return self._run(
+            params, self._visited_grads(
+                flatten_scenes(cameras_b), view_aux,
+                poses_2d_b.reshape((B * nviews,) + (n, 2)), B, nviews),
+            nviews, pose_3d_gt_b, extent, lean=lean)
 
     def _visited_grads(self, cameras, view_aux, poses_2d, n_scenes: int,
                        nviews: int):
@@ -688,42 +722,72 @@ class SceneTrainer:
             return losses_v, grads_v
         return step
 
-    def _run_scenes(self, params, cameras, view_aux, poses_2d, pose_3d_gt,
-                    extent, n_scenes: int, nviews: int,
-                    checkpoint_iterations=(), checkpoint_fn=None,
-                    hist8_init=None, lean: bool = False, keep: bool = True):
-        """The macro loop of prepared scenes whose views all live here
-        (``_visited_grads``): the eager ``_run``, or, where the trainer
-        ``captures``, replays of the step graph of this program shape,
-        made on first use and cached. ``keep`` false returns the graph's
-        own result buffers instead of copies."""
-        if not self.captures:
-            return self._run(
-                params, self._visited_grads(cameras, view_aux, poses_2d,
-                                            n_scenes, nviews),
-                nviews, pose_3d_gt, extent, checkpoint_iterations,
-                checkpoint_fn, hist8_init, lean)
-        state = self._loop_state(params, nviews, hist8_init, lean)
-        inputs = (cameras, view_aux, poses_2d, pose_3d_gt, extent)
-        key = (tuple(params.xyz.shape[:-2]), nviews,
-               self.settings.accumulation_steps, params.xyz.shape[-2],
-               self.W, self.H, lean, self.settings.early_stopping,
-               self.settings.accumulation_steps != nviews, self.renderer,
+    def _scene_graph(self, group, lead: tuple, nviews: int, lean: bool):
+        """The captured programs of this program shape (``StepGraph``),
+        made on first use from ``group`` (a group of scenes' device
+        inputs, leading group axis, each scene with scene axes ``lead``)
+        and cached."""
+        A = self.settings.accumulation_steps
+        use_stop = self.settings.early_stopping == "opt_early_stopping"
+        n = group[0].shape[-2]
+        key = (lead, nviews, A, n, self.W, self.H, lean,
+               self.settings.early_stopping, A != nviews, self.renderer,
                self.settings.view_fusion)
         graph = self.graphs.get(key)
-        if graph is None:
-            def make_step(inp, st):
-                cams, aux, p2d, gt, ext = inp
-                step = self._step_fn(
-                    self._visited_grads(cams, aux, p2d, n_scenes, nviews),
-                    nviews, gt, ext, lean)
-                return lambda: step(st)
-            graph = self.graphs[key] = graphs.StepGraph(inputs, state,
-                                                        make_step)
-        graph.load(inputs, state)
-        out = self._loop(graph.step, graph.state, graph.inputs[3],
-                         checkpoint_iterations, checkpoint_fn, lean)
-        return tree_map(torch.clone, out) if keep else out
+        if graph is not None:
+            return graph
+        n_scenes = int(np.prod(lead, dtype=np.int64))
+
+        def make_scene(group, scene, window):
+            at = scene.reshape(1)
+            init, p2d, cams, gt, drop, ext = tree_map(
+                lambda x: x.index_select(0, at).squeeze(0), group)
+            params, aux = self._prepare(init, p2d, cams, drop)
+            if lead:
+                cams = flatten_scenes(cams)
+                p2d = p2d.reshape((-1,) + tuple(p2d.shape[-2:]))
+            state = self._loop_state(params, nviews, window, lean)
+            return (cams, aux, p2d, gt, ext), state
+
+        def make_step(inputs, state):
+            cams, aux, p2d, gt, ext = inputs
+            step = self._step_fn(
+                self._visited_grads(cams, aux, p2d, n_scenes, nviews),
+                nviews, gt, ext, lean)
+            return lambda: step(state)
+
+        def make_results(inputs, state):
+            params, history = self._results(state, inputs[3], lean)
+            return params, dataclasses.replace(history, hist8=None)
+
+        graph = self.graphs[key] = graphs.StepGraph(
+            group, make_scene, make_step, make_results,
+            window_shape=lead + (8,) if use_stop else None,
+            window_of=lambda st: st.carry[2])
+        return graph
+
+    def _run_captured(self, group, n_group: int, lead: tuple, nviews: int,
+                      hist8_init=None, lean: bool = False,
+                      checkpoint_iterations=(), checkpoint_fn=None,
+                      collect: bool = False):
+        """``n_group`` scenes of ``group`` (device inputs with a leading
+        group axis; scene axes ``lead`` after it for a batch) as replays
+        of this shape's captured programs: the group copied into the
+        graph's buffers once, then per scene the prepare, ``n_macro``
+        steps and, with ``collect``, the collect (a chain's). The early-stop
+        window starts at ``hist8_init`` (+inf when None) and, collected,
+        passes from scene to scene. Returns the graph, whose ``state``
+        holds the last scene's results and, with ``collect``, ``collected``
+        the group's."""
+        graph = self._scene_graph(group, lead, nviews, lean)
+        graph.load(group, hist8_init)
+        for _ in range(n_group):
+            graph.prepare()
+            self._steps(graph.step, graph.state, checkpoint_iterations,
+                        checkpoint_fn)
+            if collect:
+                graph.collect()
+        return graph
 
     def _run(self, params, view_grads, nviews: int, pose_3d_gt, extent,
              checkpoint_iterations=(), checkpoint_fn=None, hist8_init=None,
@@ -737,14 +801,14 @@ class SceneTrainer:
         ``parallel/mesh.py``); ``nviews`` is each scene's view count."""
         state = self._loop_state(params, nviews, hist8_init, lean)
         step = self._step_fn(view_grads, nviews, pose_3d_gt, extent, lean)
-        return self._loop(lambda: step(state), state, pose_3d_gt,
-                          checkpoint_iterations, checkpoint_fn, lean)
+        self._steps(lambda: step(state), state, checkpoint_iterations,
+                    checkpoint_fn)
+        return self._results(state, pose_3d_gt, lean)
 
-    def _loop(self, run_step, st: LoopState, pose_3d_gt,
-              checkpoint_iterations, checkpoint_fn, lean: bool):
+    def _steps(self, run_step, st: LoopState, checkpoint_iterations,
+               checkpoint_fn):
         """``n_macro`` calls of ``run_step``, with the debug check and the
-        checkpoints between them; returns (params, MacroHistory) of the
-        state's tensors."""
+        checkpoints between them."""
         A, K = self.settings.accumulation_steps, self.n_macro
         saves = {min(max(it // A, 0), K) for it in checkpoint_iterations}
         saves.discard(0)
@@ -755,6 +819,9 @@ class SceneTrainer:
             if checkpoint_fn is not None and k + 1 in saves:
                 checkpoint_fn((k + 1) * A, st.carry[0].map(torch.clone))
 
+    def _results(self, st: LoopState, pose_3d_gt, lean: bool):
+        """(params, MacroHistory) of a finished loop's state tensors (the
+        lean telemetry row computed from its final parameters)."""
         params = st.carry[0]
         err_h, err_rel_h = st.error, st.error_rel
         if lean:

@@ -10,6 +10,7 @@ closed form at any pixel.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -17,6 +18,7 @@ import torch
 
 from skelsplat_tpu_torch.core import geometry
 from skelsplat_tpu_torch.core.cameras import Camera
+from skelsplat_tpu_torch.utils import PUT_ALIGN
 
 TRUNCATE = 4.0     # scipy.ndimage.gaussian_filter default
 AMPLITUDE = 255.0  # impulse value
@@ -27,11 +29,13 @@ D_MAX = 96
 
 
 def heatmap_sigmas_for_views(xyz, cov6, cameras: Camera):
-    """(V,N) σ1/σ2 via the heatmap-convention EWA projection; ``cameras``
-    is batched over V, ``xyz``/``cov6`` are (N,·)."""
+    """(…,V,N) σ1/σ2 via the heatmap-convention EWA projection;
+    ``cameras`` is batched over (…,V), ``xyz``/``cov6`` are (…,N,·): each
+    scene's points seen by each of its views."""
     c = cameras.per_point()
-    cov2d = geometry.ewa_cov2d_heatmap(xyz, cov6, c.view4, c.focal_x,
-                                       c.focal_y, c.tan_fovx, c.tan_fovy)
+    cov2d = geometry.ewa_cov2d_heatmap(xyz.unsqueeze(-3), cov6.unsqueeze(-3),
+                                       c.view4, c.focal_x, c.focal_y,
+                                       c.tan_fovx, c.tan_fovy)
     return geometry.heatmap_sigmas(cov2d)
 
 
@@ -65,12 +69,25 @@ class HeatmapSpec(NamedTuple):
 
 
 def _kernel_sum(sigma, r):
-    """Σ_{|d|≤r} exp(−d²/2σ²)."""
+    """Σ_{|d|≤r} exp(−d²/2σ²) of every (…,V,N) channel.
+
+    The taps of each scene (each index of the axes before V and N) start
+    at a ``PUT_ALIGN``-byte boundary of one buffer, where they would
+    start in a tensor of the scene's own: on the card torch.sum rounds a
+    row by its address (vectorized loads), so a batch's sums are bitwise
+    each scene's own."""
     d = torch.arange(-D_MAX, D_MAX + 1, dtype=torch.float32,
                      device=sigma.device)
     w = torch.exp(-0.5 * (d / sigma[..., None]) ** 2)
     mask = torch.abs(d) <= r[..., None]
-    return torch.sum(torch.where(mask, w, torch.zeros_like(w)), dim=-1)
+    per_scene = math.prod(w.shape[-3:])
+    words = PUT_ALIGN // w.element_size()
+    buf = torch.empty((math.prod(w.shape[:-3]),
+                       -(-per_scene // words) * words),
+                      dtype=torch.float32, device=sigma.device)
+    taps = buf[:, :per_scene].view(w.shape)
+    torch.where(mask, w, torch.zeros_like(w), out=taps)
+    return torch.sum(taps, dim=-1)
 
 
 def _wtap(d, sigma, r, s):
@@ -91,18 +108,22 @@ def _profile(y, y0, sigma, r, s, size):
 
 def heatmap_spec(xyz, cov6, poses_2d, cameras: Camera, W: int, H: int,
                  drop_mask=None) -> HeatmapSpec:
-    """The closed-form spec for all (V,N) channels.
+    """The closed-form spec for all (V,N) channels, or for (…,V,N) of a
+    batch of scenes.
 
-    poses_2d (V,N,2) detections in pixels; drop_mask optional (V,N) bool,
-    True zeroes the channel. W/H is the evaluation grid (the max over
-    views); each view's true size comes from ``cameras.width/height`` (H36M
-    mixes 1000- and 1002-wide cameras) and governs detection clamping,
-    reflect mirrors and the normalization extremes.
+    xyz/cov6 (…,N,·) each scene's initial means and covariances; cameras
+    batched over (…,V); poses_2d (…,V,N,2) detections in pixels; drop_mask
+    optional (…,V,N) bool, True zeroes the channel (a tensor on the
+    device, as the trainer passes it, is used as it is). W/H is the
+    evaluation grid (the max over views); each view's true size comes from
+    ``cameras.width/height`` (H36M mixes 1000- and 1002-wide cameras) and
+    governs detection clamping, reflect mirrors and the normalization
+    extremes.
     """
     dev = xyz.device
-    sigma1, sigma2 = heatmap_sigmas_for_views(xyz, cov6, cameras)  # (V,N)
-    w_v = cameras.width.reshape(-1, 1).to(torch.float32)            # (V,1)
-    h_v = cameras.height.reshape(-1, 1).to(torch.float32)
+    sigma1, sigma2 = heatmap_sigmas_for_views(xyz, cov6, cameras)  # (…,V,N)
+    w_v = cameras.width[..., None].to(torch.float32)                # (…,V,1)
+    h_v = cameras.height[..., None].to(torch.float32)
     x0 = torch.clamp(torch.trunc(poses_2d[..., 0]), torch.zeros_like(w_v),
                      w_v - 1).to(torch.int32)
     y0 = torch.clamp(torch.trunc(poses_2d[..., 1]), torch.zeros_like(h_v),
@@ -119,11 +140,11 @@ def heatmap_spec(xyz, cov6, poses_2d, cameras: Camera, W: int, H: int,
     ys = torch.arange(H, dtype=torch.int32, device=dev)
     xs = torch.arange(W, dtype=torch.int32, device=dev)
     p1 = _profile(ys, y0[..., None], sigma1[..., None], r1[..., None],
-                  sum1[..., None], h_v[..., None])                  # (V,N,H)
+                  sum1[..., None], h_v[..., None])                # (…,V,N,H)
     p2 = _profile(xs, x0[..., None], sigma2[..., None], r2[..., None],
-                  sum2[..., None], w_v[..., None])                  # (V,N,W)
-    in_h = ys < cameras.height.reshape(-1, 1, 1)
-    in_w = xs < cameras.width.reshape(-1, 1, 1)
+                  sum2[..., None], w_v[..., None])                # (…,V,N,W)
+    in_h = ys < cameras.height[..., None, None]
+    in_w = xs < cameras.width[..., None, None]
     amp = torch.full(sigma1.shape, AMPLITUDE, dtype=torch.float32, device=dev)
     if drop_mask is not None:
         amp = torch.where(torch.as_tensor(drop_mask, device=dev),

@@ -20,10 +20,13 @@ included, as it was. A gather does no arithmetic and K1's result for a
 view does not depend on which views share its launch, so each scene of a
 mesh run is bitwise that scene of ``SceneTrainer.optimize_scene_batch``.
 
-The mesh's macro loop stays eager for every renderer, where one device's
-scenes run as replays of a captured step (``engine/graphs.py``): a gloo
-collective cannot be captured into a CUDA graph, and the capture of
-NCCL's cannot be checked on one card.
+The mesh's prepare is the trainer's vectorized ``_prepare_batch`` (one
+pass over the rank's scenes, JAX's ``jax.vmap(prepare)``), and its macro
+loop stays eager for every renderer, where one device's scenes run as
+replays of their captured prepare and step (``engine/graphs.py``): the
+step holds the ``views`` gather, a gloo collective cannot be captured into
+a CUDA graph, and the capture of NCCL's cannot be checked on one card
+(NCCL refuses two ranks on one card).
 
 The JAX module's windowed tiers (its ``win_shapes`` branch) have no
 counterpart: K1's list of live tiles does that job on the card.

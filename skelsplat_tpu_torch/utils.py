@@ -102,6 +102,18 @@ def tree_leaves(tree) -> list:
     return out
 
 
+def stack_trees(trees):
+    """One tree of same-structured ``trees``, every leaf stacked along a
+    new leading axis where it lies: numpy leaves by numpy, tensors by
+    torch on their device. A group of scenes' host inputs then goes to the
+    device in one ``put_trees`` copy with a leading group axis."""
+    def stack(*xs):
+        if isinstance(xs[0], torch.Tensor):
+            return torch.stack(xs)
+        return np.stack(xs)
+    return tree_map(stack, *trees)
+
+
 def put_trees(trees, device):
     """The trees with every host leaf (numpy array, numpy scalar, CPU
     tensor) on ``device``, all moved by ONE copy (counterpart of

@@ -395,6 +395,126 @@ def test_captured_chain_matches_serial_loop(card):
 
 
 @pytest.mark.cuda
+def test_warm_chain_and_batch_make_no_host_sync(card):
+    """A warm optimize_scene_chain of 3 scenes (early stopping, the window
+    carried) and a warm optimize_scene_batch of 3 make no synchronizing
+    call: under the sync detector's "error" mode a sync raises. Each call
+    is the group copy, then graph launches only (prepare, steps and the
+    chain's collect)."""
+    from skelsplat_tpu_torch.core.cameras import stack_cameras
+
+    init, gt, p2d, cams_np = synthetic_inputs(3, W, H)
+    cams = compat.camera_from_numpy(cams_np, device="cpu")
+    cams_b = stack_cameras([cams] * 3)
+    tr = _trainer(40, early_stopping="opt_early_stopping")
+    hins = [tr.host_inputs(init[s], p2d[s], cams, gt[s]) for s in range(3)]
+    for _ in range(2):      # warm-up steps, then the captures
+        tr.optimize_scene_chain(hins)
+        tr.optimize_scene_batch(init, p2d, cams_b, gt)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        chain = tr.optimize_scene_chain(hins)
+        batch = tr.optimize_scene_batch(init, p2d, cams_b, gt)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert chain[0].xyz.shape == batch[0].xyz.shape == (3, 17, 3)
+    for graph in tr.graphs.values():
+        assert graph.prepare_program.graph is not None
+        assert graph.prepare_program.nodes > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("renderer", list(RENDERER_LOSSES))
+def test_captured_prepare_matches_eager(card, renderer):
+    """Each renderer's captured prepare, replayed for each scene of a
+    chain's group buffers, writes the step's inputs and loop state bitwise
+    the eager _prepare and _loop_state of that scene."""
+    from skelsplat_tpu_torch.utils import put_trees
+
+    init, gt, p2d, cams_np = synthetic_inputs(3, W, H)
+    cams = compat.camera_from_numpy(cams_np, device="cpu")
+    loss = RENDERER_LOSSES[renderer]
+    tr = _trainer(8, renderer=renderer, loss_function=loss)
+    eager = _trainer(8, eager=True, renderer=renderer, loss_function=loss)
+    hins = [tr.host_inputs(init[s], p2d[s], cams, gt[s]) for s in range(3)]
+    tr.optimize_scene_chain(hins)   # scene 0 prepares eagerly, 1-2 replay
+    (graph,) = tr.graphs.values()
+    assert graph.prepare_program.replays == 2
+    for s in range(3):
+        graph.scene.fill_(s)
+        graph.prepare()
+        init_d, p2d_d, cams_d, gt_d, drop_d, ext_d = put_trees(
+            [hins[s]], "cuda")[0]
+        params, aux = eager._prepare(init_d, p2d_d, cams_d, drop_d)
+        state = eager._loop_state(params, 4, None, False)
+        _assert_same((aux, p2d_d, gt_d, ext_d),
+                     tuple(graph.inputs[i] for i in (1, 2, 3, 4)))
+        _assert_same(state, graph.state)
+    assert graph.prepare_program.replays == 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nviews", [4, 3])
+def test_batch_prepare_is_the_loop_on_the_card(card, nviews):
+    """The vectorized prepare of 8 scenes is bitwise each scene's own
+    _prepare on the card, for each renderer, at 4 views (each scene's
+    block of GT taps at the loop's 16-byte alignment anyway) and at 3 (it
+    would not be: the taps are laid out per scene at 512-byte
+    boundaries)."""
+    from skelsplat_tpu_torch.core.cameras import stack_cameras
+
+    B = 8
+    init, gt, p2d, cams_np = synthetic_inputs(B, W, H, n_views=nviews)
+    cams = compat.camera_from_numpy(cams_np, device="cuda")
+    init_d = torch.as_tensor(init, device="cuda")
+    p2d_d = torch.as_tensor(p2d, device="cuda")
+    drop = torch.zeros((B, nviews, 17), dtype=torch.bool, device="cuda")
+    drop[::3, 1, 4] = True
+    for renderer, loss in RENDERER_LOSSES.items():
+        tr = _trainer(8, eager=True, renderer=renderer, loss_function=loss)
+        params_b, aux_b = tr._prepare_batch(init_d, p2d_d,
+                                            stack_cameras([cams] * B), drop)
+        for b in range(B):
+            params, aux = tr._prepare(init_d[b], p2d_d[b], cams, drop[b])
+            rows = slice(b * nviews, (b + 1) * nviews)
+            _assert_same(params_b.map(lambda x, b=b: x[b]), params)
+            if isinstance(aux, torch.Tensor):
+                _assert_same(aux_b[rows], aux)
+            else:
+                _assert_same(aux_b.take(rows), aux)
+
+
+@pytest.mark.cuda
+def test_chain_returns_before_its_device_work_ends(card):
+    """A warm chain of 4 scenes returns to the host while its device work
+    still runs: the call's host time is well under the group's device
+    time, as the driver's grouped sweep needs to load and write behind
+    it."""
+    import time
+
+    init, gt, p2d, cams_np = synthetic_inputs(4, W, H)
+    cams = compat.camera_from_numpy(cams_np, device="cpu")
+    tr = _trainer(500)
+    hins = [tr.host_inputs(init[s], p2d[s], cams, gt[s]) for s in range(4)]
+    tr.optimize_scene_chain(hins)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    tr.optimize_scene_chain(hins)
+    host_s = time.perf_counter() - t0
+    still_running = not torch.cuda.current_stream().query()
+    end.record()
+    torch.cuda.synchronize()
+    device_s = start.elapsed_time(end) / 1e3
+    assert still_running, (host_s, device_s)
+    assert host_s < 0.5 * device_s, (host_s, device_s)
+
+
+@pytest.mark.cuda
 def test_replays_make_no_host_sync_and_count_k1(card):
     """A replay waits on nothing: 20 steps of a captured graph make no
     synchronizing call, and each adds the graph's one K1 launch; a scene
