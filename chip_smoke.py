@@ -215,6 +215,24 @@ Phases, each failing the script (nonzero exit) on any error:
              s/scene against (a)'s s/frame. The main process then prints
              phase 12 (b)'s chained s/scene against phase 12 (a)'s
              captured s/frame.
+15. bench  — the benchmark entry point (skelsplat_tpu_torch/bench.py,
+             bench.main as a user calls it), in a child process of this
+             call that has never profiled: (a) the default invocation
+             (h36m, 64 frames, groups of 32): its JSON line (the root
+             bench's four keys, a finite value) and exactly 20,125 K1
+             launches (125 x (65 latency frames + 32 warm-chain scenes +
+             64 swept)); (b) h36m-occ, panoptic and op at 8 frames in
+             groups of 4: 2,625 K1 launches each, and h36m-occ's swept
+             xyz bitwise a serial optimize_scene loop over the same
+             scenes and dropout masks in a trainer of its own; (c)
+             --batch 8 at 8 frames in groups of 4: 3,000 launches (375
+             for the warm batch and the two timed ones), finite batch
+             xyz, value the batch's s/frame; (d) --profile last (1 frame),
+             its chrome trace read back by tools/trace_summary.py with
+             the frame's 125 records of each of K1's two kernels (the
+             invocation taken again while the profiler drops records).
+             Prints each invocation's latency, sweep and batch s/frame
+             and the phase's wall time.
 
 The line before the last is {"kernels": [...], "off_path_kernels": [...]}:
 "kernels" lists the kernels the paths launched (K1 on the frame, with
@@ -228,7 +246,9 @@ phase 10 (a)'s mesh run as "launches_multichip"; on phase 11 (b)'s sweep
 as "launches_tools"; in phase 12 (a)'s profiled captured frame as
 "launches_captured_frame"; on phase 14 (a)'s checked chain and batch as
 "launches_chain_batch" and on its chained sweep (d) as
-"launches_chained_split"; K3 on the measurement path), "off_path_kernels" those
+"launches_chained_split"; on phase 15 (a)'s default bench run as
+"launches_bench" and on (b)'s and (c)'s runs as "launches_bench_runs";
+K3 on the measurement path), "off_path_kernels" those
 the port holds that no path launches (K2, launches 0); the last line is
 {"ok": true, "device": {...}}. ``--profile`` adds a torch.profiler pass
 over one frame and over one batch of 8 frames (device time by kernel,
@@ -303,6 +323,14 @@ PREPARE_DIR = SMOKE_DIR / "prepare"
 CHAIN_GROUP = 4    # phase 14's chained group, the driver's fetch_scenes
 PREPARE_BATCHES = (8, 32, 128, 512)   # phase 14 (b)'s batch sizes
 PHASE14_TIMEOUT_S = 400
+# phase 15: the bench's shorter runs (frames, group), their presets, the
+# batch size of (c), the child's time limit and (d)'s profiled runs at most
+BENCH_SHORT = ("--frames", "8", "--group", "4")
+BENCH_PRESETS = ("h36m-occ", "panoptic", "op")
+BENCH_BATCH = 8
+PHASE15_TIMEOUT_S = 420
+BENCH_PROFILE_ATTEMPTS = 5
+BENCH_DIR = SMOKE_DIR / "bench"
 GRAPH_FRAMES = 3   # phase 12 (a)'s timed frames of each mode, after a warm-up
 TOOLS_SCENES = 2
 # phase 13 (a): the dense soft-argmax scene's MPJPE in PR 6's run
@@ -2615,65 +2643,218 @@ def phase_prepare(card: str):
     return launches["raster_loss_grad"], split_counts["raster_loss_grad"], out
 
 
-def phase_prepare_child() -> int:
-    """``--phase-14``: phase 14 alone, in a process of its own (the kernel
-    library already built, phase 7's tree on disk). Prints its lines, then
-    one JSON line of its findings and K1 launches."""
+def _bench_launches(args) -> int:
+    """K1 launches of one bench invocation of parsed options ``args``: 125
+    a scene over the latency frames (frames + 1), the warm chains (one of
+    each group size the sweep uses) and the swept frames, 125 a batch call
+    (a warm one and two timed) with ``--batch`` > 1, and 125 a profiled
+    frame (a warm-up round and the recorded one) with ``--profile``."""
+    frames, group = args.frames, args.group
+    sizes = {min(group, frames)} | ({frames % group} - {0})
+    scenes = frames + 1 + sum(sizes) + frames
+    scenes += 3 if args.batch > 1 else 0
+    scenes += 2 if args.profile else 0
+    return ITERATIONS // 4 * scenes
+
+
+def _bench(argv, card: str):
+    """``bench.main(argv)`` as a user runs it, its stdout captured, with K1
+    launches counted around it alone. Checks its last line (the root
+    bench's four keys, a finite positive value) and its K1 launches.
+    Returns (results, K1 launches, wall seconds)."""
+    import contextlib
+    import gc
+    import io
+    import math
+
+    from skelsplat_tpu_torch import bench
+    from skelsplat_tpu_torch.ops import cuda_raster as cr
+
+    args = bench.parser().parse_args(argv)
+    gc.collect()        # the previous invocation's graphs
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    for k in cr.launches:
+        cr.launches[k] = 0
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        res = bench.main(argv)
+    wall = time.perf_counter() - t0
+    launches = dict(cr.launches)
+    record = json.loads(printed.getvalue().splitlines()[-1])
+    assert list(record) == ["metric", "value", "unit", "vs_baseline"], record
+    assert record["metric"] == f"{args.preset}_frame_opt_seconds", record
+    assert math.isfinite(record["value"]) and record["value"] > 0, record
+    assert record["value"] == round(res["value"], 4), (record, res["value"])
+    assert np.isfinite(res["sweep_xyz"]).all()
+    assert res["sweep_xyz"].shape == (args.frames, bench.PRESETS[
+        args.preset][2], 3)
+    want = _bench_launches(args)
+    assert launches == {"raster_loss_grad": want, "raster_loss": 0}, \
+        (argv, launches, want)
+    batch = "" if res["batch"] is None else \
+        f", batch of {args.batch} {res['batch']:.6f}"
+    print(f"  bench {' '.join(argv) or '(defaults)'}: latency "
+          f"{res['latency']:.6f} s/frame (median of {args.frames}), sweep "
+          f"{res['sweep']:.6f}{batch} s/frame; line {json.dumps(record)}; "
+          f"{launches['raster_loss_grad']} K1 launches; {wall:.1f} s on "
+          f"{card}", flush=True)
+    return res, launches["raster_loss_grad"], wall
+
+
+def phase_bench(card: str):
+    """Phase 15: the benchmark entry point. Returns its K1 launches (the
+    default run's, and each shorter run's by its options) and the
+    JSON-able findings."""
+    import shutil
+
+    from skelsplat_tpu_torch import bench
+    from skelsplat_tpu_torch.tools import trace_summary
+
+    t0 = time.perf_counter()
+    out = {"card": card}
+    launches = {}
+
+    def record(label, res, wall):
+        out[label] = {"latency": res["latency"], "sweep": res["sweep"],
+                      "batch": res["batch"], "value": res["value"],
+                      "wall_s": wall}
+
+    # (a) the default invocation
+    res, launches["default"], wall = _bench([], card)
+    record("default", res, wall)
+    # (b) the other presets, shorter; h36m-occ against its serial loop
+    for preset in BENCH_PRESETS:
+        res, launches[preset], wall = _bench(["--preset", preset]
+                                             + list(BENCH_SHORT), card)
+        record(preset, res, wall)
+        if preset != "h36m-occ":
+            continue
+        W, H, nj = bench.PRESETS[preset][:3]
+        n = res["sweep_xyz"].shape[0] + 1
+        tr = bench.make_trainer(preset, W, H, ITERATIONS, "cuda")
+        init, gt, p2d, cams = bench._synthetic_inputs(n, W, H, n_joints=nj,
+                                                      device="cpu")
+        masks = bench.dropout_masks(n, N_VIEWS, nj)
+        assert any(m.any() for m in masks[1:])
+        serial = np.stack([tr.optimize_scene(
+            init[s], p2d[s], cams, gt[s], lean=True,
+            drop_mask=masks[s])[0].xyz.cpu().numpy() for s in range(1, n)])
+        diff = float(np.abs(res["sweep_xyz"] - serial).max())
+        out[preset]["serial_max_abs_diff"] = diff
+        print(f"  (b) {preset}'s swept xyz against a serial optimize_scene "
+              f"loop over the same {n - 1} scenes and dropout masks: "
+              f"largest |dxyz| {diff:.3g} mm (bitwise: {diff == 0.0})",
+              flush=True)
+        assert np.array_equal(res["sweep_xyz"], serial), diff
+        del tr
+    # (c) the batch
+    res, launches["batch"], wall = _bench(
+        ["--batch", str(BENCH_BATCH)] + list(BENCH_SHORT), card)
+    record("batch", res, wall)
+    assert res["value"] == res["batch"]
+    assert res["batch_xyz"].shape == (2, BENCH_BATCH, N_JOINTS, 3)
+    assert np.isfinite(res["batch_xyz"]).all()
+    # (d) the profile, last: a profiler session leaves its hooks on
+    k = ITERATIONS // 4
+    for attempt in range(1, BENCH_PROFILE_ATTEMPTS + 1):
+        prof_dir = BENCH_DIR / f"profile_{attempt}"
+        shutil.rmtree(prof_dir, ignore_errors=True)
+        res, _, wall = _bench(["--frames", "1", "--group", "1", "--profile",
+                               str(prof_dir)], card)
+        events = trace_summary.load_trace_events(res["trace"])
+        _, counts, _, _ = trace_summary.summarize(
+            events, top=4, macros=k, out=lambda r: print(f"    {r}"))
+        tiles = sum(c for name, c in counts.items()
+                    if "raster_loss_live" in name)
+        lists = sum(c for name, c in counts.items() if "live_tiles" in name)
+        print(f"  (d) profile {attempt}: {tiles} K1 tile-kernel and {lists} "
+              f"live-list records in {res['trace']}", flush=True)
+        assert tiles <= k and lists <= k, (tiles, lists)
+        if tiles == lists == k:
+            out["profile"] = {"attempts": attempt, "k1_records": tiles}
+            break
+    else:
+        raise AssertionError(f"no bench profile of {BENCH_PROFILE_ATTEMPTS} "
+                             f"held every K1 record of its frame")
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"  phase 15 ran {out['wall_s']:.1f} s in its process on {card}",
+          flush=True)
+    return launches, out
+
+
+def phase_child(number: int) -> int:
+    """``--phase-<number>``: phase 14 or 15 alone, in a process of its own
+    (the kernel library already built; phase 14 reads phase 7's tree).
+    Prints its lines, then one JSON line of its K1 launches and
+    findings."""
     from skelsplat_tpu_torch.ops import _build
     from skelsplat_tpu_torch.tools.timing import card_line
 
     _build.build()
     _build.load_library()
-    chain_batch, split, out = phase_prepare(card_line())
-    print(json.dumps({"phase14": {"launches_chain_batch": chain_batch,
-                                  "launches_chained_split": split,
-                                  "findings": out}}), flush=True)
+    card = card_line()
+    if number == 14:
+        chain_batch, split, out = phase_prepare(card)
+        launches = {"launches_chain_batch": chain_batch,
+                    "launches_chained_split": split}
+    else:
+        runs, out = phase_bench(card)
+        launches = {"launches_bench": runs.pop("default"),
+                    "launches_bench_runs": runs}
+    print(json.dumps({f"phase{number}": {**launches, "findings": out}}),
+          flush=True)
     return 0
 
 
-def phase_prepare_in_child():
-    """Phase 14 through ``--phase-14`` in a child process, which has never
-    run torch.profiler: a profiler session leaves the profiling hooks on in
-    its process, and every graph replay launch there costs ~10x its host
-    time (phases 5 and 12 profile). Returns the child's JSON findings; a
-    child that fails fails the phase."""
+def phase_in_child(number: int, timeout: int):
+    """Phase ``number`` through ``--phase-<number>`` in a child process,
+    which has never run torch.profiler: a profiler session leaves the
+    profiling hooks on in its process, and every graph replay launch there
+    costs ~10x its host time (phases 5 and 12 profile). Returns the
+    child's JSON line; a child that fails fails the phase."""
     import subprocess
 
     torch.cuda.empty_cache()
     proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                           "--phase-14"], capture_output=True, text=True,
-                          timeout=PHASE14_TIMEOUT_S)
+                           f"--phase-{number}"], capture_output=True,
+                          text=True, timeout=timeout)
+    key = f'{{"phase{number}"'
     lines = proc.stdout.splitlines()
     for line in lines:
-        if not line.startswith('{"phase14"'):
+        if not line.startswith(key):
             print(line, flush=True)
     if proc.returncode != 0:
         sys.stderr.write(proc.stderr[-8000:])
-        raise RuntimeError(f"phase 14's process exited {proc.returncode}")
+        raise RuntimeError(f"phase {number}'s process exited "
+                           f"{proc.returncode}")
     return json.loads([ln for ln in lines
-                       if ln.startswith('{"phase14"')][-1])["phase14"]
+                       if ln.startswith(key)][-1])[f"phase{number}"]
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="profile one frame with torch.profiler")
-    ap.add_argument("--phase-14", action="store_true",
-                    help="run phase 14 alone (the full run starts it so, "
-                         "in a process that has not profiled)")
+    for number in (14, 15):
+        ap.add_argument(f"--phase-{number}", action="store_true",
+                        help=f"run phase {number} alone (the full run "
+                             f"starts it so, in a process that has not "
+                             f"profiled)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 1
-    if args.phase_14:
-        return phase_prepare_child()
+    if args.phase_14 or args.phase_15:
+        return phase_child(14 if args.phase_14 else 15)
 
     from skelsplat_tpu_torch.ops import _build
 
     from skelsplat_tpu_torch.tools.timing import card_line
 
-    print("[1/14] build", flush=True)
+    print("[1/15] build", flush=True)
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.load_library()
@@ -2696,10 +2877,10 @@ def main():
     print(f"  card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
 
-    print("[2/14] kernels against their plain versions", flush=True)
+    print("[2/15] kernels against their plain versions", flush=True)
     rows, timed, timed_b = phase_kernels()
 
-    print("[3/14] path: one H36M frame through SceneTrainer.optimize_scene",
+    print("[3/15] path: one H36M frame through SceneTrainer.optimize_scene",
           flush=True)
     counts, s_per_frame, (e0, e1) = phase_path(args.profile)
     for row in rows:
@@ -2708,10 +2889,10 @@ def main():
           f"{ITERATIONS} iterations, 4 views at {W}x{H}) on {card}",
           flush=True)
 
-    print("[4/14] renderer agreement: cuda vs fused", flush=True)
+    print("[4/15] renderer agreement: cuda vs fused", flush=True)
     phase_agree()
 
-    print("[5/14] measurement path: K3, roofline, kernel_probe, "
+    print("[5/15] measurement path: K3, roofline, kernel_probe, "
           "trace_summary", flush=True)
     k1, k2 = rows
     k3_row, k1_bound, k2_bound, k1_bound_b = phase_measure(
@@ -2722,7 +2903,7 @@ def main():
         k1_bound_b
     rows.append(k3_row)
 
-    print("[6/14] cli: train.main and eval.main over a synthetic H36M tree",
+    print("[6/15] cli: train.main and eval.main over a synthetic H36M tree",
           flush=True)
     cli_counts, s_per_scene, cli_res = phase_cli()
     k1["launches_cli"] = cli_counts["raster_loss_grad"]
@@ -2731,26 +2912,26 @@ def main():
           f"iterations, 4 views at {W}x{H}, save_images) on {card}",
           flush=True)
 
-    print("[7/14] batch: train.main at scene_batch 1 and 8 over a 10-scene "
+    print("[7/15] batch: train.main at scene_batch 1 and 8 over a 10-scene "
           "synthetic H36M tree", flush=True)
     batch_counts, _, _ = phase_batch(card, args.profile)
     k1["launches_batch"] = batch_counts["raster_loss_grad"]
 
-    print("[8/14] options: Panoptic and Occlusion-Person sweeps, the dense "
+    print("[8/15] options: Panoptic and Occlusion-Person sweeps, the dense "
           "soft-argmax path, confidence-weighted fusion, triangulation, "
           "render", flush=True)
     fields, k1_err, dense_mpjpe = phase_options(card)
     k1.update(fields)
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_err)
 
-    print("[9/14] extras: eval.image_metrics (SSIM, LPIPS) card vs CPU, "
+    print("[9/15] extras: eval.image_metrics (SSIM, LPIPS) card vs CPU, "
           "bench_ssim, the native PLY codec, GaussianModel", flush=True)
     t0 = time.perf_counter()
     extras = phase_extras(card)
     print(f"  phase 9: {time.perf_counter() - t0:.1f} s; "
           f"{json.dumps(extras)}", flush=True)
 
-    print("[10/14] multichip: multichip_optimize on NCCL against the batch, "
+    print("[10/15] multichip: multichip_optimize on NCCL against the batch, "
           "the CLI on 2 ranks, dryrun_multichip, parity_study", flush=True)
     t0 = time.perf_counter()
     k1["launches_multichip"], multichip = phase_multichip(card, cli_res,
@@ -2758,14 +2939,14 @@ def main():
     print(f"  phase 10: {time.perf_counter() - t0:.1f} s; "
           f"{json.dumps(multichip)}", flush=True)
 
-    print("[11/14] tools: fused initial guesses on the card, a sweep from "
+    print("[11/15] tools: fused initial guesses on the card, a sweep from "
           "them, the triangulation guesses", flush=True)
     t0 = time.perf_counter()
     k1["launches_tools"], tools = phase_tools(card)
     print(f"  phase 11: {time.perf_counter() - t0:.1f} s; "
           f"{json.dumps(tools)}", flush=True)
 
-    print("[12/14] graphs: captured against eager (a frame, the chained "
+    print("[12/15] graphs: captured against eager (a frame, the chained "
           "CLI sweep against the serial one, the batched sweep)", flush=True)
     t0 = time.perf_counter()
     graphs = phase_graphs(card, s_per_scene)
@@ -2773,18 +2954,18 @@ def main():
     print(f"  phase 12: {time.perf_counter() - t0:.1f} s; "
           f"{json.dumps(graphs)}", flush=True)
 
-    print("[13/14] renderers: the dense and fused scenes captured against "
+    print("[13/15] renderers: the dense and fused scenes captured against "
           "eager, the graft entry", flush=True)
     t0 = time.perf_counter()
     renderers = phase_renderers(card, dense_mpjpe)
     print(f"  phase 13: {time.perf_counter() - t0:.1f} s; "
           f"{json.dumps(renderers)}", flush=True)
 
-    print("[14/14] prepare: the chain and the batch with no host wait, the "
+    print("[14/15] prepare: the chain and the batch with no host wait, the "
           "vectorized prepare, the prepare programs, a chained sweep's "
           "split", flush=True)
     t0 = time.perf_counter()
-    child = phase_prepare_in_child()
+    child = phase_in_child(14, PHASE14_TIMEOUT_S)
     k1["launches_chain_batch"] = child["launches_chain_batch"]
     k1["launches_chained_split"] = child["launches_chained_split"]
     s_chain = graphs["b"]["s_per_scene_chained"]
@@ -2794,6 +2975,15 @@ def main():
           f"phase 12 (a)'s captured frame {s_frame:.6f} s/frame: "
           f"{s_chain / s_frame:.4f}x on {card}", flush=True)
     print(f"  phase 14: {time.perf_counter() - t0:.1f} s; "
+          f"{json.dumps(child['findings'])}", flush=True)
+
+    print("[15/15] bench: python -m skelsplat_tpu_torch.bench's runs (the "
+          "defaults, the other presets, a batch, a profile)", flush=True)
+    t0 = time.perf_counter()
+    child = phase_in_child(15, PHASE15_TIMEOUT_S)
+    k1["launches_bench"] = child["launches_bench"]
+    k1["launches_bench_runs"] = child["launches_bench_runs"]
+    print(f"  phase 15: {time.perf_counter() - t0:.1f} s; "
           f"{json.dumps(child['findings'])}", flush=True)
 
     print(card)

@@ -237,7 +237,8 @@ names = [m.name for m in pkgutil.walk_packages(skelsplat_tpu_torch.__path__,
 for name in names + ['chip_smoke']:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split('.')[0] in ('jax', 'jaxlib', 'skelsplat_tpu'))
+             if m.split('.')[0] in ('jax', 'jaxlib', 'skelsplat_tpu',
+                                    '__graft_entry__'))
 assert not bad, bad
 # the port builds and loads its own copy of the PLY codec, never the JAX
 # package's native library
@@ -246,8 +247,9 @@ native.load()
 maps = open('/proc/self/maps').read()
 assert 'libskelsplat_native-' in maps
 assert '/skelsplat_tpu/native/' not in maps
-for name in ('config', 'data.loader', 'engine.driver', 'evaluation', 'train',
-             'eval', 'tools.make_synthetic_dataset', 'utils', 'native',
+for name in ('bench', 'config', 'data.loader', 'engine.driver', 'evaluation',
+             'train', 'eval', 'tools.make_synthetic_dataset', 'utils',
+             'native',
              'ops.ssim', 'ops.lpips', 'ops.image_metrics', 'ops.knn',
              'ops.sh', 'ops.densify', 'data.colmap', 'data.camera_utils',
              'data.scene_readers', 'renderer_registry', 'tools.bench_ssim',
