@@ -2091,8 +2091,9 @@ def _captured_and_eager(make, inputs, runs=("captured", "eager",
                                             "captured")):
     """Scenes of ``inputs`` (device ``host_inputs``) through an eager and
     a capturing trainer from ``make(eager)``, in the order ``runs``, each
-    timed through a host copy of xyz, with its peak device memory and its
-    K1 launches. Returns (trainers, per-run records)."""
+    timed through a host copy of xyz, with its peak device memory, its K1
+    launches and its step replays. Returns (trainers, per-run records)."""
+    from skelsplat_tpu_torch import tracing
     from skelsplat_tpu_torch.ops import cuda_raster as cr
 
     trainers = {m: make(m == "eager") for m in set(runs)}
@@ -2103,12 +2104,14 @@ def _captured_and_eager(make, inputs, runs=("captured", "eager",
         torch.cuda.reset_peak_memory_stats()
         for k in cr.launches:
             cr.launches[k] = 0
+        steps = tracing.counters["graph_launches"]["step"]
         t0 = time.perf_counter()
         params, _ = trainers[m].optimize_scene(None, None, inputs=inputs,
                                                lean=True)
         xyz = params.xyz.cpu().numpy()
         records.append({
             "mode": m, "s": time.perf_counter() - t0, "xyz": xyz,
+            "step_replays": tracing.counters["graph_launches"]["step"] - steps,
             "peak_allocated": torch.cuda.max_memory_allocated(),
             "peak_reserved": torch.cuda.max_memory_reserved(),
             "launches": dict(cr.launches)})
@@ -2129,8 +2132,7 @@ def _summary(trainers, records):
                      for r in records],
             "graph_nodes": graph.nodes,
             "capture_s": graph.capture_seconds,
-            "instantiate_s": graph.instantiate_seconds,
-            "replays": graph.replays}
+            "instantiate_s": graph.instantiate_seconds}
 
 
 def _time_graft_entry(card: str):
@@ -2561,7 +2563,6 @@ def phase_prepare(card: str):
             "prepare_nodes": prog.nodes,
             "prepare_capture_s": prog.capture_seconds,
             "prepare_instantiate_s": prog.instantiate_seconds,
-            "prepare_pool_bytes": prog.pool_bytes,
             "prepare_replay_ms": start.elapsed_time(end) / reps,
             "collect_nodes": graph.collect_program.nodes,
             "step_nodes": graph.nodes}
@@ -2621,8 +2622,7 @@ def phase_prepare(card: str):
     for label, rec in out["c"].items():
         print(f"  (c) the prepare program of {label}: {rec['prepare_nodes']} "
               f"nodes, capture {rec['prepare_capture_s']:.4f} s, "
-              f"instantiate {rec['prepare_instantiate_s']:.4f} s, pool "
-              f"{rec['prepare_pool_bytes']} bytes, a replay "
+              f"instantiate {rec['prepare_instantiate_s']:.4f} s, a replay "
               f"{rec['prepare_replay_ms']:.4f} ms (CUDA events, 20); the "
               f"collect {rec['collect_nodes']} nodes, the step "
               f"{rec['step_nodes']} on {card}", flush=True)

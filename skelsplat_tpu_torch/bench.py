@@ -12,7 +12,8 @@ frame. Prints ONE JSON line, last:
 
     python -m skelsplat_tpu_torch.bench [--frames 64] [--iterations 500]
         [--small] [--preset h36m|h36m-occ|panoptic|op] [--batch B]
-        [--group 32] [--sync-fetch] [--profile DIR] [--device cuda|cpu]
+        [--group 32] [--sync-fetch] [--profile DIR] [--program-trace FILE]
+        [--device cuda|cpu]
 
 What it times, in order (stderr lines as the root bench prints them):
 
@@ -38,7 +39,12 @@ What it times, in order (stderr lines as the root bench prints them):
   trace that ``tools/trace_summary.py`` reads. Unlike the root bench it
   runs after every timed run: after a profiler session in a process, a
   captured program's launch costs ~10× its host time, which would inflate
-  the batch's number.
+  the batch's number;
+* **the program trace** (``--program-trace FILE``): the ``tracing``
+  module's detail level on for the whole run (an event pair around every
+  graph replay), and its records written to FILE at the end as one
+  chrome trace (``tracing.export``): host spans, each scene's device
+  interval and each replay's, on the host clock.
 
 ``h36m-occ`` draws one dropout mask per scene, in scene order, from a CPU
 generator seeded 0: the root bench's draws from torch's global generator
@@ -68,7 +74,7 @@ import time
 import numpy as np
 import torch
 
-from skelsplat_tpu_torch import resolve_device
+from skelsplat_tpu_torch import resolve_device, tracing
 from skelsplat_tpu_torch.core.cameras import stack_cameras
 from skelsplat_tpu_torch.core.gaussians import SkeletonModel
 from skelsplat_tpu_torch.engine.driver import _Fetch
@@ -123,6 +129,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler chrome trace of one frame "
                          "to DIR, after the timed runs")
+    ap.add_argument("--program-trace", default=None, metavar="FILE",
+                    help="record every graph replay's device interval "
+                         "(the tracing module's detail level) and write "
+                         "the program's records to FILE as a chrome trace")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda)")
     return ap
@@ -190,9 +200,12 @@ def run(argv=None) -> dict:
     sweep's s/frame), ``batch`` (the batch's s/frame, or None), ``value``
     (the reported one), ``sweep_xyz`` ((frames, N, 3): scenes 1.. of the
     sweep), ``batch_xyz`` ((2, B, N, 3) or None), ``trace`` (the profile's
-    path or None) and ``record`` (the JSON line's object). Progress goes
-    to stderr."""
+    path or None), ``program_trace`` (the program trace's path or None)
+    and ``record`` (the JSON line's object). Progress goes to stderr."""
     args = parser().parse_args(argv)
+    if args.program_trace:
+        tracing.clear()
+        tracing.enable(detail=True)
     dev = resolve_device(args.device)
     W, H, n_joints, _, _, dropout = PRESETS[args.preset]
     if args.small:
@@ -275,6 +288,12 @@ def run(argv=None) -> dict:
         print(f"batch {B}: {dt:.3f}s for 2 pipelined batches, "
               f"{batch:.4f} s/frame", file=sys.stderr)
 
+    program_trace = None
+    if args.program_trace:
+        tracing.enable(False)
+        program_trace = tracing.export(args.program_trace)
+        print(f"program trace written to {program_trace}", file=sys.stderr)
+
     trace = None
     if args.profile:
         trace = _profile(lambda: frame(1, None), args.profile, dev)
@@ -288,7 +307,8 @@ def run(argv=None) -> dict:
     }
     return {"frame_s": times, "latency": latency, "sweep": sweep,
             "batch": batch, "value": value, "sweep_xyz": sweep_xyz,
-            "batch_xyz": batch_xyz, "trace": trace, "record": record}
+            "batch_xyz": batch_xyz, "trace": trace,
+            "program_trace": program_trace, "record": record}
 
 
 def main(argv=None) -> dict:

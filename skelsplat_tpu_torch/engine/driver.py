@@ -50,7 +50,7 @@ import numpy as np
 import torch
 
 from skelsplat_tpu_torch import losses as loss_registry
-from skelsplat_tpu_torch import resolve_device
+from skelsplat_tpu_torch import resolve_device, tracing
 from skelsplat_tpu_torch.core.cameras import stack_cameras
 from skelsplat_tpu_torch.core.gaussians import (PARAM_FIELDS, SkeletonModel,
                                                 init_params, scene_type_of)
@@ -164,6 +164,7 @@ def _write_pngs(images_u8, folder: str, name: str):
     from PIL import Image
 
     os.makedirs(folder, exist_ok=True)
+    tracing.synced("driver.save_images", images_u8)
     ims = images_u8.cpu().numpy()
     for v in range(ims.shape[0]):
         Image.fromarray(ims[v]).save(os.path.join(folder, f"{name}_{v}.png"))
@@ -233,6 +234,7 @@ class _Fetch:
         """The tensors as numpy arrays, once the copy has landed."""
         if self.event is not None:
             self.event.synchronize()
+            tracing.synced("driver.fetch")
         host = self.host.numpy()
         out, at = [], 0
         for shape in self.shapes:

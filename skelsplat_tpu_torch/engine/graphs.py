@@ -54,6 +54,7 @@ import time
 
 import torch
 
+from skelsplat_tpu_torch import tracing
 from skelsplat_tpu_torch.ops import cuda_raster
 from skelsplat_tpu_torch.utils import tree_leaves, tree_map
 
@@ -89,11 +90,13 @@ class Program:
     is captured into a graph of its own (its own memory pool) and
     replayed, and every later call is a replay. Returns what the function
     returned when it was captured (tensors of the graph's pool, rewritten
-    by every replay)."""
+    by every replay). ``kind`` names the program (prepare, step, collect)
+    in the ``tracing`` counters and replay records."""
 
-    def __init__(self, fn, warmup: int):
+    def __init__(self, fn, warmup: int, kind: str):
         self._fn = fn
         self._warmup = warmup
+        self.kind = kind
         self.warm = 0
         self.graph = None
         self.outputs = None
@@ -101,8 +104,6 @@ class Program:
         self.capture_seconds = None
         self.instantiate_seconds = None
         self.nodes = None
-        self.pool_bytes = None      # device memory the capture reserved
-        self.replays = 0
         self._side = torch.cuda.Stream() if warmup else None
 
     def __call__(self):
@@ -111,8 +112,9 @@ class Program:
                 self.warm += 1
                 return self._warm_call()
             self._capture()
-        self.graph.replay()
-        self.replays += 1
+        with tracing.replay(self.kind):
+            self.graph.replay()
+        tracing.count("graph_launches", self.kind)
         for name, n in self.launches.items():
             cuda_raster.launches[name] += n
         return self.outputs
@@ -129,29 +131,33 @@ class Program:
 
     def _capture(self):
         before = dict(cuda_raster.launches)
-        # the capture's own time and pool: the queued work drained and the
-        # cache emptied first (torch.cuda.graph empties it on entry)
+        # the capture's own time: the queued work drained and the cache
+        # emptied first (torch.cuda.graph empties it on entry)
         torch.cuda.synchronize()
+        tracing.synced("graphs.capture")
         torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        t0 = time.perf_counter()
-        # a dead trainer's graphs sit in reference cycles, and the collector
-        # would run their destructor (cudaGraphExecDestroy, not permitted
-        # while capturing) wherever it fires: not inside the capture
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            # thread-local: a call another thread makes meanwhile (the
-            # profiler's, NCCL's watchdog) must not invalidate this capture
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                self.outputs = self._fn()
-        finally:
-            if collecting:
-                gc.enable()
-        torch.cuda.synchronize()
-        self.capture_seconds = time.perf_counter() - t0
-        self.pool_bytes = torch.cuda.memory_reserved() - reserved
+        with tracing.span("skelsplat.capture") as capture:
+            # a dead trainer's graphs sit in reference cycles, and the
+            # collector would run their destructor (cudaGraphExecDestroy,
+            # not permitted while capturing) wherever it fires: not inside
+            # the capture
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                # thread-local: a call another thread makes meanwhile (the
+                # profiler's, NCCL's watchdog) must not invalidate this
+                # capture
+                with torch.cuda.graph(graph,
+                                      capture_error_mode="thread_local"):
+                    self.outputs = self._fn()
+            finally:
+                if collecting:
+                    gc.enable()
+            torch.cuda.synchronize()
+            tracing.synced("graphs.capture")
+        self.capture_seconds = capture.seconds
+        tracing.count("captures", self.kind)
         self.launches = {k: cuda_raster.launches[k] - before[k]
                          for k in before}
         cuda_raster.launches.update(before)
@@ -159,6 +165,7 @@ class Program:
         t0 = time.perf_counter()
         graph.instantiate()
         torch.cuda.synchronize()
+        tracing.synced("graphs.instantiate")
         self.instantiate_seconds = time.perf_counter() - t0
         self.graph = graph
 
@@ -207,7 +214,6 @@ class StepGraph:
     capture_seconds = property(lambda self: self.step_program.capture_seconds)
     instantiate_seconds = property(
         lambda self: self.step_program.instantiate_seconds)
-    replays = property(lambda self: self.step_program.replays)
     launches = property(lambda self: self.step_program.launches)
 
     def _grow(self, group_inputs):
@@ -220,25 +226,26 @@ class StepGraph:
         self.capacity = n
         self.group = tree_map(
             lambda x: x.new_empty((n,) + tuple(x.shape[1:])), group_inputs)
-        self.prepare_program = Program(self._prepare_into, 0)
-        self.collect_program = Program(self._collect_into, 0)
+        self.prepare_program = Program(self._prepare_into, 0, "prepare")
+        self.collect_program = Program(self._collect_into, 0, "collect")
         self.out = None
 
     def load(self, group_inputs, window=None):
         """A group's inputs (leading group axis) into the group buffers,
         the scene counter to 0 and the early-stop window to ``window``
         (+inf when None)."""
-        self._grow(group_inputs)
-        n = tree_leaves(group_inputs)[0].shape[0]
-        for d, s in zip(tree_leaves(self.group), tree_leaves(group_inputs),
-                        strict=True):
-            d[:n].copy_(s)
-        self.scene.zero_()
-        if self.window is not None:
-            if window is None:
-                self.window.fill_(float("inf"))
-            else:
-                self.window.copy_(window)
+        with tracing.span("skelsplat.load"):
+            self._grow(group_inputs)
+            n = tree_leaves(group_inputs)[0].shape[0]
+            for d, s in zip(tree_leaves(self.group),
+                            tree_leaves(group_inputs), strict=True):
+                d[:n].copy_(s)
+            self.scene.zero_()
+            if self.window is not None:
+                if window is None:
+                    self.window.fill_(float("inf"))
+                else:
+                    self.window.copy_(window)
 
     def prepare(self):
         """Set up the scene at the scene counter: the first call of a
@@ -263,7 +270,7 @@ class StepGraph:
         replay, or a replay."""
         if self.step_program is None:
             run = self._make_step(self.inputs, self.state)
-            self.step_program = Program(run, WARMUP_STEPS)
+            self.step_program = Program(run, WARMUP_STEPS, "step")
         return self.step_program()
 
     def collect(self):

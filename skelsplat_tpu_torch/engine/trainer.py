@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from skelsplat_tpu_torch import losses as loss_registry
-from skelsplat_tpu_torch import resolve_device
+from skelsplat_tpu_torch import resolve_device, tracing
 from skelsplat_tpu_torch.core.cameras import Camera, flatten_scenes
 from skelsplat_tpu_torch.core.gaussians import (PARAM_FIELDS, GaussianParams,
                                                 SkeletonModel, init_params)
@@ -160,55 +160,62 @@ def compose_macro(adam: AdamGroups, V_accum: int, use_stop: bool,
     acc_gx = None
     if general or use_stop:
         carry, acc_gx = carry[:-1], carry[-1]
-    if use_stop:
-        params, opt_state, hist8, stopped = carry
-        stop_now, m_star, hist8_new = stop_offset(hist8, losses_v, REPEAT_TOL)
-        # after a stop the reference leaves its loop: the history freezes
-        hist8 = torch.where(stopped[..., None], hist8, hist8_new)
-    else:
-        params, opt_state, stopped = carry
-        stop_now = torch.zeros(lead, dtype=torch.bool, device=dev)
-        m_star = torch.full(lead, V_accum, dtype=torch.int64, device=dev)
-    if general:
-        acc_gx = _last_visit_rows(acc_gx, grads_v.xyz, idxs, m_star)
-        g_xyz = fuse_xyz(acc_gx)
-    elif use_stop:
-        row_new = (torch.arange(V_accum, device=dev)[:, None, None]
-                   < m_star[..., None, None, None])
-        acc_gx = torch.where(row_new, grads_v.xyz, acc_gx)
-        g_xyz = fuse_xyz(acc_gx)
-    else:
-        g_xyz = fuse_xyz(grads_v.xyz)
-    # the last visited view (A−1 without a stop), as an index tensor: a
-    # Python int would wait for the device
-    oidx = (m_star - 1).reshape(lead + (1, 1, 1))
-    grads = GaussianParams(g_xyz, *(
-        torch.take_along_dim(g, oidx, dim=len(lead)).squeeze(len(lead))
-        for g in (grads_v.log_scales, grads_v.quats, grads_v.opacity_logit)))
-    iteration = k * V_accum + m_star
+    with tracing.section("skelsplat.step.history"):
+        if use_stop:
+            params, opt_state, hist8, stopped = carry
+            stop_now, m_star, hist8_new = stop_offset(hist8, losses_v,
+                                                      REPEAT_TOL)
+            # after a stop the reference leaves its loop: the history
+            # freezes
+            hist8 = torch.where(stopped[..., None], hist8, hist8_new)
+        else:
+            params, opt_state, stopped = carry
+            stop_now = torch.zeros(lead, dtype=torch.bool, device=dev)
+            m_star = torch.full(lead, V_accum, dtype=torch.int64, device=dev)
+    with tracing.section("skelsplat.step.compose"):
+        if general:
+            acc_gx = _last_visit_rows(acc_gx, grads_v.xyz, idxs, m_star)
+            g_xyz = fuse_xyz(acc_gx)
+        elif use_stop:
+            row_new = (torch.arange(V_accum, device=dev)[:, None, None]
+                       < m_star[..., None, None, None])
+            acc_gx = torch.where(row_new, grads_v.xyz, acc_gx)
+            g_xyz = fuse_xyz(acc_gx)
+        else:
+            g_xyz = fuse_xyz(grads_v.xyz)
+        # the last visited view (A−1 without a stop), as an index tensor: a
+        # Python int would wait for the device
+        oidx = (m_star - 1).reshape(lead + (1, 1, 1))
+        grads = GaussianParams(g_xyz, *(
+            torch.take_along_dim(g, oidx, dim=len(lead)).squeeze(len(lead))
+            for g in (grads_v.log_scales, grads_v.quats,
+                      grads_v.opacity_logit)))
+        iteration = k * V_accum + m_star
 
-    new_params, new_opt = adam.step(params, grads, opt_state, iteration,
-                                    spatial_lr_scale)
-    apply = torch.logical_not(stopped)
-    apply_f = apply[..., None, None]   # against (…,N,·) fields
+    with tracing.section("skelsplat.step.adam"):
+        new_params, new_opt = adam.step(params, grads, opt_state, iteration,
+                                        spatial_lr_scale)
+        apply = torch.logical_not(stopped)
+        apply_f = apply[..., None, None]   # against (…,N,·) fields
 
-    def keep(a, b):
-        return torch.where(apply_f, a, b)
+        def keep(a, b):
+            return torch.where(apply_f, a, b)
 
-    params2 = new_params.map(keep, params)
-    opt2 = dataclasses.replace(
-        new_opt, m=new_opt.m.map(keep, opt_state.m),
-        v=new_opt.v.map(keep, opt_state.v),
-        t=torch.where(apply, new_opt.t, opt_state.t))
-    stopped2 = stopped | (stop_now & apply)
+        params2 = new_params.map(keep, params)
+        opt2 = dataclasses.replace(
+            new_opt, m=new_opt.m.map(keep, opt_state.m),
+            v=new_opt.v.map(keep, opt_state.v),
+            t=torch.where(apply, new_opt.t, opt_state.t))
+        stopped2 = stopped | (stop_now & apply)
 
-    stop_mark = torch.where(stop_now & apply, iteration,
-                            torch.zeros_like(iteration))
-    if lean:
-        rec = (losses_v, stop_mark)
-    else:
-        err, err_rel = _telemetry_norms(params2.xyz, pose_3d_gt)
-        rec = (losses_v, err, err_rel, stop_mark)
+    with tracing.section("skelsplat.step.history"):
+        stop_mark = torch.where(stop_now & apply, iteration,
+                                torch.zeros_like(iteration))
+        if lean:
+            rec = (losses_v, stop_mark)
+        else:
+            err, err_rel = _telemetry_norms(params2.xyz, pose_3d_gt)
+            rec = (losses_v, err, err_rel, stop_mark)
     new_carry = ((params2, opt2, hist8, stopped2) if use_stop
                  else (params2, opt2, stopped2))
     if general or use_stop:
@@ -249,6 +256,7 @@ def extent_from_centers(centers) -> float:
 def cameras_extent(cameras: Camera) -> float:
     """``extent_from_centers`` of a camera batch's centers (one host copy
     of them when they lie on the card)."""
+    tracing.synced("trainer.cameras_extent", cameras.cam_center)
     return extent_from_centers(cameras.cam_center.detach().cpu().numpy())
 
 
@@ -301,6 +309,7 @@ def _check_finite(k: int, A: int, losses_v, grads_v: GaussianParams,
     named = [("losses", losses_v)]
     named += [(f"{f} gradient", getattr(grads_v, f)) for f in PARAM_FIELDS]
     named += [(f"{f} parameter", getattr(params, f)) for f in PARAM_FIELDS]
+    tracing.synced("trainer.debug_check", losses_v)
     finite = torch.stack([torch.isfinite(t).all() for _, t in named]).tolist()
     bad = [name for (name, _), ok in zip(named, finite) if not ok]
     if bad:
@@ -435,11 +444,14 @@ class SceneTrainer:
                     .expand(lead + (A,) + own).clone()
                     .reshape((-1,) + own).requires_grad_(True))
 
-        p = params.map(copies)
         with torch.enable_grad():
-            losses = self._view_loss(p, cameras, view_aux, poses_2d)
-            grads = torch.autograd.grad(
-                losses.sum(), [p.xyz, p.log_scales, p.quats, p.opacity_logit])
+            with tracing.section("skelsplat.step.preprocess"):
+                p = params.map(copies)
+                losses = self._view_loss(p, cameras, view_aux, poses_2d)
+            with tracing.section("skelsplat.step.backward"):
+                grads = torch.autograd.grad(
+                    losses.sum(),
+                    [p.xyz, p.log_scales, p.quats, p.opacity_logit])
         return (losses.detach().reshape(lead + (A,)),
                 GaussianParams(*(g.reshape(lead + (A,) + tuple(g.shape[1:]))
                                  for g in grads)))
@@ -511,18 +523,20 @@ class SceneTrainer:
         ``drop_generator`` draws the dropout mask where ``drop_mask`` is
         not given (``host_inputs``).
         """
-        if inputs is None:
-            inputs = put_trees([self.host_inputs(
-                initial_pose, poses_2d, cameras, pose_3d_gt, drop_mask,
-                drop_generator)], self.device)[0]
-        return self._optimize_inputs(inputs, checkpoint_iterations,
-                                     checkpoint_fn, hist8_init, lean)
+        with tracing.unit("skelsplat.scene"):
+            if inputs is None:
+                inputs = put_trees([self.host_inputs(
+                    initial_pose, poses_2d, cameras, pose_3d_gt, drop_mask,
+                    drop_generator)], self.device)[0]
+            return self._optimize_inputs(inputs, checkpoint_iterations,
+                                         checkpoint_fn, hist8_init, lean)
 
     def _optimize_inputs(self, inputs, checkpoint_iterations=(),
                          checkpoint_fn=None, hist8_init=None,
-                         lean: bool = False):
+                         lean: bool = False, index=None):
         """``optimize_scene`` of device ``inputs``: the captured prepare
-        and steps where the trainer ``captures``, else the eager ones."""
+        and steps where the trainer ``captures``, else the eager ones
+        (``index``: the scene's place in a chain, for its launch span)."""
         init, poses_2d, cameras, pose_3d_gt, drop_mask, extent = inputs
         nviews = poses_2d.shape[0]
         if self.captures:
@@ -531,12 +545,14 @@ class SceneTrainer:
                 hist8_init, lean, checkpoint_iterations, checkpoint_fn)
             return tree_map(torch.clone, self._results(
                 graph.state, graph.inputs[3], lean))
-        params, view_aux = self._prepare(init, poses_2d, cameras, drop_mask)
-        return self._run(
-            params, self._visited_grads(cameras, view_aux, poses_2d, 1,
-                                        nviews),
-            nviews, pose_3d_gt, extent, checkpoint_iterations,
-            checkpoint_fn, hist8_init, lean)
+        with tracing.launch(self.device, index):
+            params, view_aux = self._prepare(init, poses_2d, cameras,
+                                             drop_mask)
+            return self._run(
+                params, self._visited_grads(cameras, view_aux, poses_2d, 1,
+                                            nviews),
+                nviews, pose_3d_gt, extent, checkpoint_iterations,
+                checkpoint_fn, hist8_init, lean)
 
     def optimize_scene_chain(self, host_inputs_list, hist8_init=None,
                              lean: bool = False):
@@ -561,26 +577,29 @@ class SceneTrainer:
         early stopping); ``stopped_at`` is (G,). ``lean`` keeps only each
         scene's last telemetry row (K=1).
         """
-        use_stop = self.settings.early_stopping == "opt_early_stopping"
-        hist8 = hist8_init if use_stop else None
-        if self.captures:
-            G = len(host_inputs_list)
-            group = put_trees([stack_trees(list(host_inputs_list))],
-                              self.device)[0]
-            graph = self._run_captured(group, G, (), group[1].shape[1],
-                                       hist8, lean, collect=True)
-            (params_g, history_g), hist8 = graph.collected(G)
-            return params_g, dataclasses.replace(history_g, hist8=hist8)
-        results = []
-        for inputs in put_trees(list(host_inputs_list), self.device):
-            params, history = self._optimize_inputs(
-                inputs, hist8_init=hist8, lean=lean)
-            results.append((params, dataclasses.replace(history, hist8=None)))
-            hist8 = history.hist8
-        params_g, history_g = tree_map(lambda *xs: torch.stack(xs),
-                                       *results)
-        return params_g, dataclasses.replace(
-            history_g, hist8=None if hist8 is None else hist8.clone())
+        with tracing.unit("skelsplat.chain"):
+            use_stop = self.settings.early_stopping == "opt_early_stopping"
+            hist8 = hist8_init if use_stop else None
+            if self.captures:
+                G = len(host_inputs_list)
+                group = put_trees([stack_trees(list(host_inputs_list))],
+                                  self.device)[0]
+                graph = self._run_captured(group, G, (), group[1].shape[1],
+                                           hist8, lean, collect=True)
+                (params_g, history_g), hist8 = graph.collected(G)
+                return params_g, dataclasses.replace(history_g, hist8=hist8)
+            results = []
+            for g, inputs in enumerate(put_trees(list(host_inputs_list),
+                                                 self.device)):
+                params, history = self._optimize_inputs(
+                    inputs, hist8_init=hist8, lean=lean, index=g)
+                results.append((params,
+                                dataclasses.replace(history, hist8=None)))
+                hist8 = history.hist8
+            params_g, history_g = tree_map(lambda *xs: torch.stack(xs),
+                                           *results)
+            return params_g, dataclasses.replace(
+                history_g, hist8=None if hist8 is None else hist8.clone())
 
     def optimize_scene_batch(self, initial_b, poses_2d_b, cameras_b: Camera,
                              pose_3d_gt_b=None, lean: bool = False):
@@ -603,32 +622,36 @@ class SceneTrainer:
         error/error_rel (B,K,N), stopped_at (B,)), on the device; ``lean``
         keeps only the last telemetry row (K=1).
         """
-        initial_b = np.asarray(initial_b, dtype=np.float32)
-        poses_2d_b = np.ascontiguousarray(np.asarray(poses_2d_b)[..., :2],
-                                          dtype=np.float32)
-        B, nviews, n = poses_2d_b.shape[:3]
-        pose_3d_gt_b = (np.zeros_like(initial_b) if pose_3d_gt_b is None
-                        else np.asarray(pose_3d_gt_b, dtype=np.float32))
-        centers = cameras_b.cam_center.detach().cpu().numpy()
-        extent = np.asarray([extent_from_centers(c) for c in centers],
-                            np.float32)
-        drop_b = np.zeros((B, nviews, n), dtype=bool)
-        batch = put_trees([(initial_b, poses_2d_b, cameras_b, pose_3d_gt_b,
-                            drop_b, extent)], self.device)[0]
-        if self.captures:
-            graph = self._run_captured(
-                tree_map(lambda x: x.unsqueeze(0), batch), 1, (B,), nviews,
-                None, lean)
-            return tree_map(torch.clone, self._results(
-                graph.state, graph.inputs[3], lean))
-        initial_b, poses_2d_b, cameras_b, pose_3d_gt_b, drop_b, extent = batch
-        params, view_aux = self._prepare_batch(initial_b, poses_2d_b,
-                                               cameras_b, drop_b)
-        return self._run(
-            params, self._visited_grads(
-                flatten_scenes(cameras_b), view_aux,
-                poses_2d_b.reshape((B * nviews,) + (n, 2)), B, nviews),
-            nviews, pose_3d_gt_b, extent, lean=lean)
+        with tracing.unit("skelsplat.batch"):
+            initial_b = np.asarray(initial_b, dtype=np.float32)
+            poses_2d_b = np.ascontiguousarray(np.asarray(poses_2d_b)[..., :2],
+                                              dtype=np.float32)
+            B, nviews, n = poses_2d_b.shape[:3]
+            pose_3d_gt_b = (np.zeros_like(initial_b) if pose_3d_gt_b is None
+                            else np.asarray(pose_3d_gt_b, dtype=np.float32))
+            tracing.synced("trainer.batch_extent", cameras_b.cam_center)
+            centers = cameras_b.cam_center.detach().cpu().numpy()
+            extent = np.asarray([extent_from_centers(c) for c in centers],
+                                np.float32)
+            drop_b = np.zeros((B, nviews, n), dtype=bool)
+            batch = put_trees([(initial_b, poses_2d_b, cameras_b, pose_3d_gt_b,
+                                drop_b, extent)], self.device)[0]
+            if self.captures:
+                graph = self._run_captured(
+                    tree_map(lambda x: x.unsqueeze(0), batch), 1, (B,), nviews,
+                    None, lean)
+                return tree_map(torch.clone, self._results(
+                    graph.state, graph.inputs[3], lean))
+            (initial_b, poses_2d_b, cameras_b, pose_3d_gt_b, drop_b,
+             extent) = batch
+            with tracing.launch(self.device):
+                params, view_aux = self._prepare_batch(initial_b, poses_2d_b,
+                                                       cameras_b, drop_b)
+                return self._run(
+                    params, self._visited_grads(
+                        flatten_scenes(cameras_b), view_aux,
+                        poses_2d_b.reshape((B * nviews,) + (n, 2)), B, nviews),
+                    nviews, pose_3d_gt_b, extent, lean=lean)
 
     def _visited_grads(self, cameras, view_aux, poses_2d, n_scenes: int,
                        nviews: int):
@@ -708,17 +731,19 @@ class SceneTrainer:
                 self.adam, A, use_stop, general, st.carry, k, losses_v,
                 grads_v, idx_all.index_select(0, at).reshape(-1),
                 pose_3d_gt, extent, view_fusion, lean=lean)
-            for dst, src in zip(tree_leaves(st.carry), tree_leaves(carry),
-                                strict=True):
-                dst.copy_(src)
-            if lean:
-                st.losses.select(axis, 0).copy_(rec[0])
-            else:
-                st.losses.index_copy_(axis, at, rec[0].unsqueeze(axis))
-                st.error.index_copy_(axis, at, rec[1].unsqueeze(axis))
-                st.error_rel.index_copy_(axis, at, rec[2].unsqueeze(axis))
-            st.stop_max.copy_(torch.maximum(st.stop_max, rec[-1]))
-            st.step.add_(1)
+            with tracing.section("skelsplat.step.history"):
+                for dst, src in zip(tree_leaves(st.carry),
+                                    tree_leaves(carry), strict=True):
+                    dst.copy_(src)
+                if lean:
+                    st.losses.select(axis, 0).copy_(rec[0])
+                else:
+                    st.losses.index_copy_(axis, at, rec[0].unsqueeze(axis))
+                    st.error.index_copy_(axis, at, rec[1].unsqueeze(axis))
+                    st.error_rel.index_copy_(axis, at,
+                                             rec[2].unsqueeze(axis))
+                st.stop_max.copy_(torch.maximum(st.stop_max, rec[-1]))
+                st.step.add_(1)
             return losses_v, grads_v
         return step
 
@@ -781,12 +806,13 @@ class SceneTrainer:
         the group's."""
         graph = self._scene_graph(group, lead, nviews, lean)
         graph.load(group, hist8_init)
-        for _ in range(n_group):
-            graph.prepare()
-            self._steps(graph.step, graph.state, checkpoint_iterations,
-                        checkpoint_fn)
-            if collect:
-                graph.collect()
+        for g in range(n_group):
+            with tracing.launch(self.device, g if collect else None):
+                graph.prepare()
+                self._steps(graph.step, graph.state, checkpoint_iterations,
+                            checkpoint_fn)
+                if collect:
+                    graph.collect()
         return graph
 
     def _run(self, params, view_grads, nviews: int, pose_3d_gt, extent,

@@ -33,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from skelsplat_tpu_torch import losses as loss_registry
+from skelsplat_tpu_torch import tracing
 from skelsplat_tpu_torch.core import geometry
 from skelsplat_tpu_torch.ops import heatmaps as hm
 from skelsplat_tpu_torch.ops import rasterizer
@@ -316,8 +317,7 @@ def _launch(pack, p1, p2, img, l1: bool, with_grad: bool):
                      dtype=torch.float32, device=dev)
     name = "raster_loss_grad" if with_grad else "raster_loss"
     # the range names the launches in a profiler trace (tools/trace_summary.py)
-    with torch.cuda.device(dev), torch.profiler.record_function(
-            f"skelsplat::{name}"):
+    with torch.cuda.device(dev), tracing.profiler_range(f"skelsplat::{name}"):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.skelsplat_raster_loss(
             pack.data_ptr(), p1.data_ptr(), p2.data_ptr(), img.data_ptr(),

@@ -8,11 +8,16 @@ every kernel to the CPU op that launched it: a kernel event carries the
 ``correlation`` id of its runtime launch event (``cudaLaunchKernel`` and
 kin), and that launch nests inside its op (an aten op, or a
 ``record_function`` range such as the port's ``skelsplat::raster_loss_grad``)
-on the launching thread's lane.
+on the launching thread's lane. ``--by-range PREFIX`` attributes every
+kernel instead to the innermost ``record_function`` range named PREFIX...
+open when it was launched, on any thread (autograd launches a backward's
+kernels from its own thread while the caller waits inside its range):
+with ``tracing.enable(detail=True)`` the sections of the port's eager
+macro step (``skelsplat.step.*``, K1's ``skelsplat::raster_loss_grad``).
 
 Usage:
     python -m skelsplat_tpu_torch.tools.trace_summary TRACE [--top 30]
-        [--macros N] [--by-op]
+        [--macros N] [--by-op] [--by-range PREFIX]
 
 TRACE is a ``.json`` / ``.json.gz`` file or a directory searched for them.
 With ``--macros N`` every total is also divided by N (e.g. 125 macro steps
@@ -127,6 +132,29 @@ def launching_ops(events) -> dict:
     return out
 
 
+def launching_ranges(events, prefix: str) -> dict:
+    """{correlation id: name of the innermost ``user_annotation`` range
+    whose name starts with ``prefix`` and that was open at its runtime
+    launch event's start}, over every lane: one sweep, the ranges nesting
+    as the calling thread opened them."""
+    marks = sorted(
+        [(ev["ts"], 0, -ev.get("dur", 0), ev) for ev in events
+         if ev.get("cat") == "user_annotation"
+         and ev.get("name", "").startswith(prefix)]
+        + [(ev["ts"], 1, 0, ev) for ev in events
+           if ev.get("cat") in RUNTIME_CATS
+           and "correlation" in ev.get("args", {})], key=lambda m: m[:3])
+    out, stack = {}, []
+    for ts, is_launch, _, ev in marks:
+        while stack and ts >= stack[-1]["ts"] + stack[-1].get("dur", 0):
+            stack.pop()
+        if not is_launch:
+            stack.append(ev)
+        elif stack:
+            out[ev["args"]["correlation"]] = stack[-1]["name"]
+    return out
+
+
 def range_launches(events, op: str) -> set:
     """Correlation ids of the runtime kernel launches (``cudaLaunchKernel``
     and kin) whose innermost enclosing CPU op is named ``op``. These are
@@ -153,11 +181,12 @@ def launch_offsets(events) -> dict:
 
 
 def summarize(events, top: int = 30, macros: int | None = None,
-              out=print, by_op: bool = False):
+              out=print, by_op: bool = False, by_range: str | None = None):
     """Top device kernels of a trace's events (all of them: ``--by-op``
     reads the runtime and CPU-op events too). Returns (self time, count)
-    per kernel name and, with ``by_op``, (self time, count) per launching
-    op, else (None, None)."""
+    per kernel name and, with ``by_op`` (or ``by_range``, the prefix of
+    the ranges), (self time, count) per launching op (or range), else
+    (None, None)."""
     dev = device_events(events)
     per_k, counts = exclusive_times(dev)
     total = sum(per_k.values())
@@ -172,9 +201,10 @@ def summarize(events, top: int = 30, macros: int | None = None,
         if macros:
             row += f" {dur / macros:>9.2f}"
         out(row)
-    if not by_op:
+    if not by_op and by_range is None:
         return per_k, counts, None, None
-    op_of = launching_ops(events)
+    op_of = (launching_ops(events) if by_range is None
+             else launching_ranges(events, by_range))
     by_src, n_src = collections.Counter(), collections.Counter()
     for ev in dev:
         src = op_of.get(ev.get("args", {}).get("correlation"),
@@ -182,7 +212,8 @@ def summarize(events, top: int = 30, macros: int | None = None,
         by_src[src] += ev.get("dur", 0)
         n_src[src] += 1
     out("")
-    out(f"{'launching op':<60} {'self ms':>9} {'#kern':>6}"
+    out(f"{'launching ' + ('op' if by_range is None else 'range'):<60} "
+        f"{'self ms':>9} {'#kern':>6}"
         + (f" {'us/macro':>9}" if macros else ""))
     for src, dur in by_src.most_common(top):
         row = f"{src[:60]:<60} {dur / 1e3:>9.3f} {n_src[src]:>6}"
@@ -201,6 +232,10 @@ def main(argv=None):
     ap.add_argument("--by-op", action="store_true",
                     help="attribute each kernel to the CPU op that launched "
                          "it and add a per-op rollup")
+    ap.add_argument("--by-range", default=None, metavar="PREFIX",
+                    help="attribute each kernel to the innermost range "
+                         "named PREFIX... open at its launch, on any "
+                         "thread, and add a per-range rollup")
     args = ap.parse_args(argv)
     events = load_trace_events(args.trace)
     if not device_events(events):
@@ -210,7 +245,7 @@ def main(argv=None):
             print(f"  {n:>7}  {cat}")
         return None
     return summarize(events, top=args.top, macros=args.macros,
-                     by_op=args.by_op)
+                     by_op=args.by_op, by_range=args.by_range)
 
 
 if __name__ == "__main__":

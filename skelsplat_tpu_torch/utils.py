@@ -12,6 +12,8 @@ from datetime import datetime
 import numpy as np
 import torch
 
+from skelsplat_tpu_torch import tracing
+
 
 def safe_state(silent: bool) -> torch.Generator:
     """Timestamp every stdout line (or drop them all when ``silent``), seed
@@ -120,8 +122,13 @@ def put_trees(trees, device):
     ``skelsplat_tpu/utils.py::put_trees``): the leaves are packed into one
     buffer, each at a ``PUT_ALIGN``-byte boundary, which is pinned and
     copied without blocking when ``device`` is a GPU. The device leaves are
-    views of that copy; tensors already on a GPU stay put."""
-    dev = torch.device(device)
+    views of that copy; tensors already on a GPU stay put. Traced as the
+    ``skelsplat.input_copy`` span, its bytes counted as ``input_bytes``."""
+    with tracing.span("skelsplat.input_copy"):
+        return _put_trees(trees, torch.device(device))
+
+
+def _put_trees(trees, dev):
     packed = []   # (array, byte offset)
     size = 0
 
@@ -147,6 +154,7 @@ def put_trees(trees, device):
     for a, at in packed:
         host_np[at:at + a.nbytes] = a.reshape(-1).view(np.uint8)
     buf = host.to(dev, non_blocking=True)
+    tracing.count("input_bytes", "put_trees", size)
 
     def view(i):
         if isinstance(i, torch.Tensor):

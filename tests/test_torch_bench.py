@@ -84,8 +84,9 @@ def test_options_are_the_root_benchs_and_device():
     assert len(root) == 8
     port = {a.option_strings[0]: a for a in tbench.parser()._actions
             if a.option_strings[0] != "-h"}
-    assert set(port) == set(root) | {"--device"}
+    assert set(port) == set(root) | {"--device", "--program-trace"}
     assert port["--device"].default == "cuda"
+    assert port["--program-trace"].default is None
     for opt, want in root.items():
         action = port[opt]
         assert action.default == (False if want["action"] == "store_true"

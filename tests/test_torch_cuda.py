@@ -109,8 +109,18 @@ def test_calls_on_two_streams_overlap_safely(card):
             assert all(torch.equal(a, b) for a, b in zip(out, alone[k])), k
 
 
+def _replays(kind):
+    """The graph replays of programs of ``kind`` so far, by the tracing
+    module's ``graph_launches`` counter."""
+    from skelsplat_tpu_torch import tracing
+
+    return tracing.counters["graph_launches"][kind]
+
+
 def _count_syncs(fn):
-    """The synchronizing CUDA calls ``fn`` makes, by torch's detector."""
+    """The synchronizing CUDA calls ``fn`` makes, by torch's detector (its
+    warnings, not the notice it gives once a process, on first use, that
+    the mode is a prototype)."""
     import warnings
 
     with warnings.catch_warnings(record=True) as caught:
@@ -120,7 +130,7 @@ def _count_syncs(fn):
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return sum("called a synchronizing" in str(w.message) for w in caught)
 
 
 @pytest.mark.cuda
@@ -218,6 +228,7 @@ def test_captured_scene_matches_eager(card, case, monkeypatch):
     init, gt, p2d, cams_np = synthetic_inputs(2, W, H)
     cams = compat.camera_from_numpy(cams_np, device="cpu")
     runs = {}
+    steps = _replays("step")
     for eager in (True, False):
         tr = _trainer(48, eager=eager, **settings)
         h8, out = None, []
@@ -235,7 +246,8 @@ def test_captured_scene_matches_eager(card, case, monkeypatch):
     tr, captured = runs[False]
     assert tr.captures and len(tr.graphs) == 1
     graph = next(iter(tr.graphs.values()))
-    assert graph.nodes > 0 and graph.replays == 2 * tr.n_macro - 3
+    assert graph.nodes > 0
+    assert _replays("step") - steps == 2 * tr.n_macro - 3
     for s, ((res_e, saves_e), (res_c, saves_c)) in enumerate(
             zip(runs[True][1], captured)):
         _assert_same(res_c, res_e)
@@ -268,11 +280,13 @@ def test_fused_and_dense_renderers_stay_eager(card, renderer):
     trainers = [_trainer(24, eager=eager, renderer=renderer,
                          loss_function=RENDERER_LOSSES[renderer])
                 for eager in (True, False)]
+    steps = _replays("step")
     out = [t.optimize_scene(init[0], p2d[0], cams, gt[0]) for t in trainers]
     assert not trainers[0].captures and not trainers[0].graphs
     assert trainers[1].captures and len(trainers[1].graphs) == 1
     graph = next(iter(trainers[1].graphs.values()))
-    assert graph.nodes > 0 and graph.replays == trainers[1].n_macro - 3
+    assert graph.nodes > 0
+    assert _replays("step") - steps == trainers[1].n_macro - 3
     _assert_same(out[1], out[0])
     batch = [t.optimize_scene_batch(init, p2d, stack_cameras([cams] * 2), gt)
              for t in trainers]
@@ -439,9 +453,10 @@ def test_captured_prepare_matches_eager(card, renderer):
     tr = _trainer(8, renderer=renderer, loss_function=loss)
     eager = _trainer(8, eager=True, renderer=renderer, loss_function=loss)
     hins = [tr.host_inputs(init[s], p2d[s], cams, gt[s]) for s in range(3)]
+    prepares = _replays("prepare")
     tr.optimize_scene_chain(hins)   # scene 0 prepares eagerly, 1-2 replay
     (graph,) = tr.graphs.values()
-    assert graph.prepare_program.replays == 2
+    assert _replays("prepare") - prepares == 2
     for s in range(3):
         graph.scene.fill_(s)
         graph.prepare()
@@ -452,7 +467,7 @@ def test_captured_prepare_matches_eager(card, renderer):
         _assert_same((aux, p2d_d, gt_d, ext_d),
                      tuple(graph.inputs[i] for i in (1, 2, 3, 4)))
         _assert_same(state, graph.state)
-    assert graph.prepare_program.replays == 5
+    assert _replays("prepare") - prepares == 5
 
 
 @pytest.mark.cuda
@@ -541,6 +556,97 @@ def test_replays_make_no_host_sync_and_count_k1(card):
     assert _count_syncs(lambda: [graph.step() for _ in range(20)]) == 0
     torch.cuda.synchronize()
     assert cr.launches["raster_loss_grad"] == before + 20
+
+
+@pytest.mark.cuda
+def test_warm_chain_counts_its_graph_launches_and_device_intervals(card):
+    """A warm chain of 2 scenes of 500 iterations launches 127 graphs a
+    scene (its prepare, 125 steps and its collect), and the tracing module
+    reads each scene's device interval and the gap before it from its
+    events; with detail on, each replay is a record with its own interval,
+    inside its scene's, and the results are bitwise those with it off."""
+    import time
+
+    from skelsplat_tpu_torch import tracing
+
+    init, gt, p2d, cams_np = synthetic_inputs(2, W, H)
+    cams = compat.camera_from_numpy(cams_np, device="cpu")
+    tr = _trainer(500)
+    hins = [tr.host_inputs(init[s], p2d[s], cams, gt[s]) for s in range(2)]
+    for _ in range(2):      # the captures, then a warm group
+        tr.optimize_scene_chain(hins)
+    torch.cuda.synchronize()
+    wins, results = {}, {}
+    for detail in (False, True):
+        tracing.enable(detail)
+        try:
+            t0 = time.perf_counter()
+            results[detail] = tr.optimize_scene_chain(hins)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        finally:
+            tracing.enable(False)
+        wins[detail] = win = tracing.window(t0, t1)
+        assert win["units"] == 1 and not win["wrapped"]
+        assert win["counters"]["graph_launches"] == 2 * 127
+        assert win["by_label"]["graph_launches"] == {
+            "prepare": 2, "step": 250, "collect": 2}
+        assert win["counters"]["host_syncs"] == win["counters"]["captures"] \
+            == 0
+        assert win["scenes"] == 2
+        assert 0 < win["scene_device_s"] < t1 - t0
+        assert 0 <= win["graph_gap_s"] < t1 - t0
+    assert wins[False]["replays"] == {}
+    replays = wins[True]["replays"]
+    assert {k: v["n"] for k, v in replays.items()} == {
+        "prepare": 2, "step": 250, "collect": 2}
+    in_replays = sum(v["device_s"] for v in replays.values())
+    assert in_replays <= wins[True]["scene_device_s"] * 1.001
+    _assert_same(results[True], results[False])
+
+
+@pytest.mark.cuda
+def test_warm_calls_count_the_syncs_torch_detects(card):
+    """A warm chain, batch and single scene make as many host syncs by
+    the tracing module's counter as torch's sync detector reports: none
+    with the cameras on the host; with them on the card, one copy of the
+    camera centres for each scene's extent and one for the batch's."""
+    import collections
+
+    from skelsplat_tpu_torch import tracing
+    from skelsplat_tpu_torch.core.cameras import stack_cameras
+
+    init, gt, p2d, cams_np = synthetic_inputs(3, W, H)
+    tr = _trainer(40)
+    cameras = {}
+    for device in ("cpu", "cuda"):
+        cams = compat.camera_from_numpy(cams_np, device=device)
+        cameras[device] = (cams, stack_cameras([cams] * 3))
+
+    def calls(device):
+        cams, cams_b = cameras[device]
+        hins = [tr.host_inputs(init[s], p2d[s], cams, gt[s])
+                for s in range(3)]
+        tr.optimize_scene_chain(hins)
+        tr.optimize_scene_batch(init, p2d, cams_b, gt)
+        tr.optimize_scene(init[0], p2d[0], cams, gt[0])
+
+    def syncs(device):
+        torch.cuda.synchronize()
+        before = collections.Counter(tracing.counters["host_syncs"])
+        detected = _count_syncs(lambda: calls(device))
+        by_site = tracing.counters["host_syncs"] - before
+        torch.cuda.synchronize()
+        return sum(by_site.values()), detected, dict(by_site)
+
+    for _ in range(2):      # warm-up steps, then the captures
+        calls("cpu")
+        calls("cuda")
+    assert syncs("cpu") == (0, 0, {})
+    counted, detected, by_site = syncs("cuda")
+    assert counted == detected > 0
+    assert by_site == {"trainer.cameras_extent": 4,
+                       "trainer.batch_extent": 1}
 
 
 @pytest.fixture

@@ -198,7 +198,7 @@ class _Called:
     """A captured program's stand-in on the CPU: every call runs the
     function, as a replay reruns its kernels on the same buffers."""
 
-    def __init__(self, fn, warmup):
+    def __init__(self, fn, warmup, kind):
         self._fn = fn
         self.graph = None
         self.calls = 0
