@@ -22,7 +22,14 @@ Phases, each failing the script (nonzero exit) on any error:
              exactly 0; two K1 runs must be bitwise equal; the live-tile
              list each kernel built must equal live_tiles_plain's. Times
              each kernel, its plain version and its bound, and K1 again
-             on the 32 views.
+             on the 32 views. Then kernels A (preprocess_pack) and B
+             (preprocess_grad) at the benchmark cells' macro steps (4
+             views at 1002×1000 with 17 joints, 4 at 1920×1080 with 19,
+             512 at 1920×1080 with 19): A's outputs bitwise its plain
+             version's, B's losses and gradients within 1e-5 of each
+             field's largest magnitude of its plain version's and of
+             autograd's (make_cuda_view_loss with per-view copies); each
+             timed beside its plain version and its bound by bytes.
 3. path    — one synthetic H36M frame (4 views at 1002×1000, 17 joints,
              500 iterations = 125 macro steps, l2_gaussian + limb
              consistency) through SceneTrainer.optimize_scene(renderer=
@@ -248,6 +255,9 @@ as "launches_tools"; in phase 12 (a)'s profiled captured frame as
 "launches_chain_batch" and on its chained sweep (d) as
 "launches_chained_split"; on phase 15 (a)'s default bench run as
 "launches_bench" and on (b)'s and (c)'s runs as "launches_bench_runs";
+kernels A and B with K1's launch counts, each asserted equal to K1's on
+its path, and their times, plain times and bounds at the H36M, Panoptic
+and batch macro steps, the latter two as "*_panoptic" and "*_batch128";
 K3 on the measurement path), "off_path_kernels" those
 the port holds that no path launches (K2, launches 0); the last line is
 {"ok": true, "device": {...}}. ``--profile`` adds a torch.profiler pass
@@ -271,9 +281,11 @@ MIXED_WIDTHS = (1002, 1000, 1002, 1000)
 ITERATIONS = 500
 TIMED_FRAMES = 3  # timed frames after the checked one
 TIMED_BATCHES = 2  # phase 7's timed batches of SCENE_BATCH frames
-# the kernels optimize_scene launches (K1); the port's other kernel, K2
-# (raster_loss), is the no-grad loss, which the path never evaluates
-PATH_KERNELS = ("raster_loss_grad", "issue_rate")
+# the kernels optimize_scene launches (K1, kernels A and B) and K3, the
+# measurement path's; the port's other kernel, K2 (raster_loss), is the
+# no-grad loss, which the path never evaluates
+PATH_KERNELS = ("raster_loss_grad", "preprocess_pack", "preprocess_grad",
+                "issue_rate")
 LIVE_SLOTS = ("0", "1", "2", "4", "8", "12", "17")
 TRACE_LAUNCHES = 5
 TRACE_ATTEMPTS = 50
@@ -350,6 +362,17 @@ FUSE_ATOL_MM = 1e-9
 # by torch's reductions, so only the summation order differs; that order
 # moves the sums by ~2e-7 of this scale on an H100, 50x inside the bound
 DG_RTOL = 1e-5
+# phase 2's macro steps for kernels A and B, the benchmark cells' (name,
+# scene type, scenes, W, H): the first is the row's, the others its
+# "*_panoptic" and "*_batch128" fields
+STEP_SHAPES = (("h36m", "h36m", 1, 1002, 1000),
+               ("panoptic", "panoptic", 1, 1920, 1080),
+               ("batch128", "panoptic", 128, 1920, 1080))
+# kernel B against its plain version and against autograd of the
+# renderer's loss, each field relative to its largest magnitude; the limb
+# prior's weight there, 1,000x the configs' so that it shows
+STEP_RTOL = 1e-5
+STEP_LAMBDA = 1e-2
 
 
 def kernel_inputs(widths, behind_camera: bool, seed: int,
@@ -492,7 +515,107 @@ def phase_kernels():
     print(f"  raster_loss_grad on {timed_b[0].shape[0]} views: {ms:.4f} "
           f"ms/call device time ({stream_ms:.4f} ms back to back); plain "
           f"{plain_ms:.2f} ms; bound {b_ms:.6f} ms by {b_by}", flush=True)
-    return rows, timed, timed_b
+    return rows, phase_step_kernels(), timed, timed_b
+
+
+def _rel_err(pairs) -> float:
+    """The worst |got − want| over (got, want) pairs, each relative to the
+    largest |want| of its pair."""
+    return max(float((g - w).abs().max() / w.abs().max()) for g, w in pairs)
+
+
+def phase_step_kernels():
+    """Kernels A and B at each of STEP_SHAPES' macro steps: A's outputs
+    bitwise its plain version's, B's losses and gradients (from the same
+    K1 outputs) within STEP_RTOL of its plain version's and of autograd's;
+    each timed beside its plain version and its bound by bytes (each input
+    byte read once, each output byte written once, at the published
+    bandwidth). Returns the two kernel rows."""
+    from skelsplat_tpu_torch.core.gaussians import PARAM_FIELDS
+    from skelsplat_tpu_torch.ops import cuda_preprocess as cp
+    from skelsplat_tpu_torch.ops import cuda_raster as cr
+    from skelsplat_tpu_torch.tools.kernel_probe import (autograd_step,
+                                                        step_inputs)
+    from skelsplat_tpu_torch.tools.roofline import PEAK_BYTES_PER_S
+    from skelsplat_tpu_torch.tools.timing import cuda_ms
+
+    rows = {name: {"name": name, "route": "cuda",
+                   "source": "skelsplat_tpu_torch/csrc/preprocess.cu",
+                   "replaces": None, "launches": None, "max_abs_err": 0.0,
+                   "bound_by": "bytes", "library_ms": None}
+            for name in ("preprocess_pack", "preprocess_grad")}
+    for label, st, ns, w, h in STEP_SHAPES:
+        params, cams, prof, A = step_inputs(st, ns, w, h, device="cuda")
+        limbs = cp.limb_pairs("3D_length_consistency", st)
+
+        def fwd():
+            return cp.preprocess_pack(params, cams, prof, A)
+
+        def bwd():
+            return cp.preprocess_grad(params, cams, order, S, C, dg, A, w, h,
+                                      False, limbs, STEP_LAMBDA)
+
+        def fwd_plain():
+            return cp.preprocess_pack_plain(params, cams, prof, A)
+
+        def bwd_plain():
+            return cp.preprocess_grad_plain(params, cams, order, S, C, dg, A,
+                                            w, h, False, limbs, STEP_LAMBDA)
+
+        before = dict(cr.launches)
+        out_a = fwd()
+        pack, order, p1s, p2s = out_a
+        S, C, dg = cr.raster_loss_grad(pack, p1s, p2s, prof.img, False)
+        losses, grads = bwd()
+        torch.cuda.synchronize()
+        assert {k: cr.launches[k] - before[k] for k in before} == {
+            "raster_loss_grad": 1, "raster_loss": 0, "preprocess_pack": 1,
+            "preprocess_grad": 1}, (label, cr.launches)
+        for got, want in zip(out_a, fwd_plain()):
+            assert got.dtype == want.dtype and torch.equal(got, want), label
+        got = [losses] + [getattr(grads, f) for f in PARAM_FIELDS]
+        assert all(bool(torch.isfinite(g).all()) for g in got), label
+        ref_l, ref = bwd_plain()
+        plain = [ref_l] + [getattr(ref, f) for f in PARAM_FIELDS]
+        auto_l, auto = autograd_step(params, cams, prof, A, False,
+                                     "l2_gaussian", st,
+                                     "3D_length_consistency", STEP_LAMBDA)
+        autograd = [auto_l] + [auto[f] for f in PARAM_FIELDS]
+        rel_plain = _rel_err(zip(got, plain))
+        rel_auto = _rel_err(zip(got, autograd))
+        print(f"  kernels A, B at {label} ({A * ns} views, {w}x{h}, "
+              f"N={order.shape[1]}): A bitwise its plain version; B's worst "
+              f"relative error {rel_plain:.3g} against its plain version, "
+              f"{rel_auto:.3g} against autograd", flush=True)
+        assert rel_plain <= STEP_RTOL and rel_auto <= STEP_RTOL, \
+            (label, rel_plain, rel_auto)
+        b_err = max(float((g - p).abs().max()) for g, p in zip(got, plain))
+        rows["preprocess_grad"]["max_abs_err"] = max(
+            rows["preprocess_grad"]["max_abs_err"], b_err)
+
+        V, N = order.shape
+        param_bytes, cam_bytes = 4 * ns * N * 11, 4 * V * 38
+        # A: parameters, cameras, profiles, B and spans in; records, order
+        # and the profiles in slot order out. B: parameters, cameras,
+        # order, S, C and dg in; losses and gradients out.
+        a_bytes = (param_bytes + cam_bytes + 8 * (p1s.numel() + p2s.numel())
+                   + 4 * V * N * 5 + 4 * pack.numel() + 4 * order.numel())
+        b_bytes = (param_bytes + cam_bytes + 4 * V * N * 7 + 4 * V * 2
+                   + 4 * V * (1 + N * 11))
+        suffix = "" if label == STEP_SHAPES[0][0] else f"_{label}"
+        for name, fn, plain_fn, nbytes in (
+                ("preprocess_pack", fwd, fwd_plain, a_bytes),
+                ("preprocess_grad", bwd, bwd_plain, b_bytes)):
+            ms, stream_ms = cuda_ms(fn, reps=200, each_kernel_once=True)
+            plain_ms, _ = cuda_ms(plain_fn, reps=20, warmup=1)
+            bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+            rows[name].update({f"ms{suffix}": ms,
+                               f"plain_ms{suffix}": plain_ms,
+                               f"bound_ms{suffix}": bound_ms})
+            print(f"  {name} at {label}: {ms:.5f} ms/call device time "
+                  f"({stream_ms:.5f} ms back to back); plain {plain_ms:.4f} "
+                  f"ms; bound {bound_ms:.7f} ms by bytes", flush=True)
+    return list(rows.values())
 
 
 def make_trainer(iterations: int, renderer: str, eager: bool = False):
@@ -555,8 +678,7 @@ def phase_path(profile: bool):
           flush=True)
     assert e1 < e0, "MPJPE did not fall"
     assert (l1 < l0).all(), "the per-view loss did not fall"
-    assert counts == {"raster_loss_grad": ITERATIONS // 4,
-                      "raster_loss": 0}, counts
+    assert counts == _step_launches(ITERATIONS // 4), counts
     assert int(hist.stopped_at) == 0
 
     times, errs = [], []
@@ -848,8 +970,7 @@ def phase_cli():
                               f"hydra.run.dir={run_dir}"])
     print(f"  train.main: {len(results)} scenes, launches {counts}",
           flush=True)
-    assert counts == {"raster_loss_grad": CLI_SCENES * ITERATIONS // 4,
-                      "raster_loss": 0}, counts
+    assert counts == _step_launches(CLI_SCENES * ITERATIONS // 4), counts
 
     names = [r["scene_name"] for r in results]
     need = ([run_dir / "point_cloud" / f"iteration_{ITERATIONS}" / f"{s}.ply"
@@ -915,8 +1036,7 @@ def phase_batch(card: str, profile: bool):
         groups = math.ceil(BATCH_SCENES / batch)
         print(f"  train.main, scene_batch={batch}: {len(results)} scenes, "
               f"launches {counts} ({groups} groups)", flush=True)
-        assert counts == {"raster_loss_grad": groups * ITERATIONS // 4,
-                          "raster_loss": 0}, counts
+        assert counts == _step_launches(groups * ITERATIONS // 4), counts
         names = [r["scene_name"] for r in results]
         plys = [run_dir / "point_cloud" / f"iteration_{ITERATIONS}"
                 / f"{s}.ply" for s in names]
@@ -1089,8 +1209,7 @@ def sweep_dataset(config: str, size, n_joints: int, card: str):
                               f"hydra.run.dir={run_dir}"])
     print(f"  train.main, {config}.yaml: {len(results)} scenes, launches "
           f"{counts}", flush=True)
-    assert counts == {"raster_loss_grad": DATASET_SCENES * ITERATIONS // 4,
-                      "raster_loss": 0}, counts
+    assert counts == _step_launches(DATASET_SCENES * ITERATIONS // 4), counts
     missing = [r["scene_name"] for r in results if not (
         run_dir / "point_cloud" / f"iteration_{ITERATIONS}"
         / f"{r['scene_name']}.ply").is_file()]
@@ -1195,7 +1314,7 @@ def phase_options(card: str):
           f"{summary['mean_seconds_per_scene']:.6f} s/scene; absolute MPJPE "
           f"{res['absolute']:.4f} mm; 1 scene, {ITERATIONS} iterations, "
           f"{N_VIEWS} views at {W}x{H}, on {card}", flush=True)
-    assert counts == {"raster_loss_grad": 0, "raster_loss": 0}, counts
+    assert counts == _step_launches(0), counts
     assert len(results) == 1 and np.isfinite(res["absolute"]), res
     dense_mpjpe = res["absolute"]
     dense_card_vs_cpu(h36m)
@@ -1211,8 +1330,7 @@ def phase_options(card: str):
     print(f"  view_fusion=confidence_weighted: launches {counts}; absolute "
           f"MPJPE {res['absolute']:.4f} mm, relative {res['relative']:.4f} "
           f"mm", flush=True)
-    assert counts == {"raster_loss_grad": ITERATIONS // 4,
-                      "raster_loss": 0}, counts
+    assert counts == _step_launches(ITERATIONS // 4), counts
     assert np.isfinite(res["absolute"]), res
     row["launches_fusion"] = counts["raster_loss_grad"]
 
@@ -1449,7 +1567,7 @@ def phase_extras(card: str):
     assert 0.0 < im["ssim"] < 1.0 and im["lpips"] > 0.0, im
     assert all(np.isfinite([e["ssim"], e["lpips"]]).all()
                for e in im["per_scene"].values()), im
-    assert cr.launches == {"raster_loss_grad": 0, "raster_loss": 0}
+    assert not any(cr.launches.values()), cr.launches
     d_ssim, d_lpips = _image_metrics_card_vs_cpu(cfg, run_dir, weights,
                                                  im["per_scene"])
     lpips_ms, lpips_device_ms, lpips_peak = _time_lpips(cfg, run_dir,
@@ -1524,8 +1642,7 @@ def _mesh_vs_batch(card: str):
           f" scenes, {ITERATIONS} iterations, 4 views at {W}x{H}) on {card}",
           flush=True)
     assert backend == "nccl", backend
-    assert counts == {"raster_loss_grad": ITERATIONS // 4,
-                      "raster_loss": 0}, counts
+    assert counts == _step_launches(ITERATIONS // 4), counts
     pb, hb = trainer.optimize_scene_batch(init, p2d, cams_b, gt)
     assert np.isfinite(xyz).all()
     assert np.array_equal(xyz, pb.xyz.cpu().numpy())
@@ -1835,8 +1952,7 @@ def phase_tools(card: str):
         "h36m.yaml", overrides, make_run_dir=False), TOOLS_SCENES))
     results, counts = _train(["--config-name", "h36m.yaml", *overrides,
                               f"hydra.run.dir={run_dir}"])
-    assert counts == {"raster_loss_grad": TOOLS_SCENES * ITERATIONS // 4,
-                      "raster_loss": 0}, counts
+    assert counts == _step_launches(TOOLS_SCENES * ITERATIONS // 4), counts
     assert len(results) == TOOLS_SCENES, results
     summary = json.loads((run_dir / "train_summary.json").read_text())
     res = eval_cli.main(["--config-name", "h36m.yaml", *overrides,
@@ -1942,8 +2058,8 @@ def phase_graphs(card: str, cli_s_per_scene: float):
             t0 = time.perf_counter()
             got[m] = frame(m, s)
             times[m].append(time.perf_counter() - t0)
-            assert dict(cr.launches) == {"raster_loss_grad": ITERATIONS // 4,
-                                         "raster_loss": 0}, (m, cr.launches)
+            assert dict(cr.launches) == _step_launches(ITERATIONS // 4), \
+                (m, cr.launches)
         assert np.array_equal(got["eager"], got["captured"]), s
     (graph,) = trainers["captured"].graphs.values()
     s_frame = {m: float(np.median(t)) for m, t in times.items()}
@@ -1987,8 +2103,8 @@ def phase_graphs(card: str, cli_s_per_scene: float):
         shutil.rmtree(run_dir, ignore_errors=True)
         results, counts = _train(["--config-name", "h36m.yaml", *base,
                                   *extra, f"hydra.run.dir={run_dir}"])
-        assert counts == {"raster_loss_grad": CLI_SCENES * ITERATIONS // 4,
-                          "raster_loss": 0}, (mode, counts)
+        assert counts == _step_launches(CLI_SCENES * ITERATIONS // 4), \
+            (mode, counts)
         runs[mode] = (run_dir, json.loads(
             (run_dir / "train_summary.json").read_text()))
     (cdir, chained), (sdir, serial) = runs["chained"], runs["serial"]
@@ -2115,8 +2231,7 @@ def _captured_and_eager(make, inputs, runs=("captured", "eager",
             "peak_allocated": torch.cuda.max_memory_allocated(),
             "peak_reserved": torch.cuda.max_memory_reserved(),
             "launches": dict(cr.launches)})
-        assert records[-1]["launches"] == {"raster_loss_grad": 0,
-                                           "raster_loss": 0}, records[-1]
+        assert records[-1]["launches"] == _step_launches(0), records[-1]
         assert np.isfinite(xyz).all()
     for r in records[1:]:
         assert np.array_equal(r["xyz"], records[0]["xyz"]), \
@@ -2368,8 +2483,8 @@ def _chained_split(card: str, tensorboard: bool):
                          f"eval.output_path={run_dir}"])[ITERATIONS]
     eval_s = time.perf_counter() - t0
     n = len(results)
-    assert n == BATCH_SCENES and counts == {
-        "raster_loss_grad": n * ITERATIONS // 4, "raster_loss": 0}, counts
+    assert n == BATCH_SCENES, n
+    assert counts == _step_launches(n * ITERATIONS // 4), counts
     assert len(split.times["dispatch"]) == len(groups) == 3, split.times
     summary = json.loads((run_dir / "train_summary.json").read_text())
     device_s = [a.elapsed_time(b) / 1e3 for a, b, _ in groups]
@@ -2520,8 +2635,8 @@ def phase_prepare(card: str):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     launches = dict(cr.launches)
-    assert launches == {"raster_loss_grad": (CHAIN_GROUP + 1) * ITERATIONS
-                        // 4, "raster_loss": 0}, launches
+    assert launches == _step_launches((CHAIN_GROUP + 1) * ITERATIONS // 4), \
+        launches
     out["a"] = {"s_per_frame_captured": s_frame, "frames_s": frames[1:]}
     for name, (host, start, end, busy, params) in times.items():
         assert torch.isfinite(params.xyz).all(), name
@@ -2643,6 +2758,13 @@ def phase_prepare(card: str):
     return launches["raster_loss_grad"], split_counts["raster_loss_grad"], out
 
 
+def _step_launches(steps: int) -> dict:
+    """The launch counters after ``steps`` macro steps of the kernel
+    renderer: one launch of kernel A, K1 and kernel B a step."""
+    return {"raster_loss_grad": steps, "raster_loss": 0,
+            "preprocess_pack": steps, "preprocess_grad": steps}
+
+
 def _bench_launches(args) -> int:
     """K1 launches of one bench invocation of parsed options ``args``: 125
     a scene over the latency frames (frames + 1), the warm chains (one of
@@ -2691,8 +2813,7 @@ def _bench(argv, card: str):
     assert res["sweep_xyz"].shape == (args.frames, bench.PRESETS[
         args.preset][2], 3)
     want = _bench_launches(args)
-    assert launches == {"raster_loss_grad": want, "raster_loss": 0}, \
-        (argv, launches, want)
+    assert launches == _step_launches(want), (argv, launches, want)
     batch = "" if res["batch"] is None else \
         f", batch of {args.batch} {res['batch']:.6f}"
     print(f"  bench {' '.join(argv) or '(defaults)'}: latency "
@@ -2878,12 +2999,12 @@ def main():
           f"{torch.version.cuda}", flush=True)
 
     print("[2/15] kernels against their plain versions", flush=True)
-    rows, timed, timed_b = phase_kernels()
+    rows, step_rows, timed, timed_b = phase_kernels()
 
     print("[3/15] path: one H36M frame through SceneTrainer.optimize_scene",
           flush=True)
     counts, s_per_frame, (e0, e1) = phase_path(args.profile)
-    for row in rows:
+    for row in rows + step_rows:
         row["launches"] = counts[row["name"]]
     print(f"  {s_per_frame:.6f} s/frame (median of {TIMED_FRAMES}; "
           f"{ITERATIONS} iterations, 4 views at {W}x{H}) on {card}",
@@ -2986,6 +3107,12 @@ def main():
     print(f"  phase 15: {time.perf_counter() - t0:.1f} s; "
           f"{json.dumps(child['findings'])}", flush=True)
 
+    # every path's launch counts were asserted equal for K1, A and B
+    # (_step_launches); the profiled frame's are K1's kernel records
+    for row in step_rows:
+        row.update({k: v for k, v in k1.items() if k.startswith("launches_")
+                    and k != "launches_captured_frame"})
+    rows += step_rows
     print(card)
     print(json.dumps({
         "kernels": [r for r in rows if r["name"] in PATH_KERNELS],

@@ -153,8 +153,13 @@ def focal2fov(focal: float, pixels: float) -> float:
 # ---------------------------------------------------------------------------
 
 def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
-    """Quaternion(s) (w,x,y,z), L2-normalized here, → (..., 3, 3)."""
-    norm = torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True))
+    """Quaternion(s) (w,x,y,z), L2-normalized here, → (..., 3, 3). The
+    squared norm adds its four terms in index order on every device, as
+    the CPU's sum does and as ``csrc/preprocess.cu`` does (the card's
+    reduction kernel would pair them)."""
+    sq = q * q
+    norm = torch.sqrt(sq[..., 0:1] + sq[..., 1:2] + sq[..., 2:3]
+                      + sq[..., 3:4])
     q = q / norm
     r, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
     R = torch.stack(

@@ -6,8 +6,9 @@ every ``accumulation_steps`` iterations with xyz grad = mean of the per-view
 grads and scale/rot/opacity grads from the last rendered view only. Since
 the parameters are constant between optimizer steps, one macro step is:
 render all visited views at the current parameters, combine gradients,
-step. Here a macro step is a batch over the visited views (one preprocess
-over (A, N), one kernel launch for all A views), and the scene is a loop
+step. Here a macro step is a batch over the visited views (with the
+kernel renderer, one launch each of the preprocess, K1 and the backward
+for all A views), and the scene is a loop
 over macro steps that never waits on the device: every decision (early
 stop, freezing after it) is a tensor select, and the step reads its index
 from a device counter.
@@ -50,7 +51,7 @@ from skelsplat_tpu_torch.core.gaussians import (PARAM_FIELDS, GaussianParams,
                                                 SkeletonModel, init_params)
 from skelsplat_tpu_torch.engine import graphs
 from skelsplat_tpu_torch.engine.optim import AdamGroups, OptConfig
-from skelsplat_tpu_torch.ops import cuda_raster
+from skelsplat_tpu_torch.ops import cuda_preprocess, cuda_raster
 from skelsplat_tpu_torch.ops import heatmaps as hm
 from skelsplat_tpu_torch.ops import rasterizer
 from skelsplat_tpu_torch.ops.fused import FUSED_LOSSES, make_fused_view_loss
@@ -367,8 +368,8 @@ class SceneTrainer:
         self.n_macro = opt.iterations // settings.accumulation_steps
         self.adam = AdamGroups(opt)
         if renderer == "cuda":
-            self._view_loss = cuda_raster.make_cuda_view_loss(
-                model, settings, self.W, self.H, antialiasing)
+            self._limbs = cuda_preprocess.limb_pairs(
+                settings.consistency_loss, model.scene_type)
         elif renderer == "fused":
             self._view_loss = make_fused_view_loss(
                 model, settings, self.W, self.H, antialiasing)
@@ -434,9 +435,24 @@ class SceneTrainer:
         """(losses (…,A), grads (…,A,N,·)) of the visited views of a scene,
         or of a batch of scenes (``params`` with leading scene axes;
         ``cameras``, ``view_aux`` and ``poses_2d`` then hold each scene's A
-        visited views, one scene after another): one forward over every
-        visited view with per-view parameter copies, one backward."""
+        visited views, one scene after another). The kernel renderer takes
+        them from ``cuda_preprocess`` (on the card, kernel A and K1, then
+        kernel B); the others from one forward over every visited view with
+        per-view parameter copies and one autograd backward."""
         lead = tuple(params.xyz.shape[:-2])
+        if self.renderer == "cuda":
+            with tracing.section("skelsplat.step.preprocess"):
+                fwd = cuda_preprocess.view_forward(
+                    params, cameras, view_aux, A, self.antialiasing,
+                    self.settings.loss_function)
+            with tracing.section("skelsplat.step.backward"):
+                losses, grads = cuda_preprocess.preprocess_grad(
+                    params, cameras, *fwd, A, self.W, self.H,
+                    self.antialiasing, self._limbs,
+                    self.settings.lambda_consistency)
+            return (losses.reshape(lead + (A,)),
+                    grads.map(lambda g: g.reshape(lead + (A,)
+                                                  + tuple(g.shape[1:]))))
 
         def copies(x):
             own = tuple(x.shape[len(lead):])

@@ -28,7 +28,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("raster_loss.cu", "issue_rate.cu")
+SOURCES = ("raster_loss.cu", "issue_rate.cu", "preprocess.cu")
 HEADERS = ("raster_math.cuh",)
 TILE = 16
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -131,6 +131,12 @@ def load_library() -> ctypes.CDLL:
             lib.skelsplat_raster_loss_occupancy.restype = i32
             lib.skelsplat_raster_loss_slot_bound.argtypes = [i32, i32]
             lib.skelsplat_raster_loss_slot_bound.restype = i32
+            lib.skelsplat_preprocess_pack.argtypes = (
+                [vp] * 16 + [i32] * 7 + [vp] * 5)
+            lib.skelsplat_preprocess_pack.restype = i32
+            lib.skelsplat_preprocess_grad.argtypes = (
+                [vp] * 16 + [i32] * 15 + [ctypes.c_float] + [vp] * 6)
+            lib.skelsplat_preprocess_grad.restype = i32
             lib.skelsplat_issue_rate.argtypes = [vp, vp] + [i32] * 4 + [vp]
             lib.skelsplat_issue_rate.restype = i32
             lib.skelsplat_error_string.argtypes = [i32]

@@ -20,9 +20,11 @@ view's partials; the live-tile count never reaches the host.
 
 Each wrapper launches the kernel for CUDA tensors (counting the launch in
 ``launches``) and runs its plain PyTorch version, the same two passes over
-row chunks, for CPU tensors. Autograd sees ``_RasterLossFn``, whose backward
-is dg scaled by the loss cotangent; gradients reach xyz, scales, quats and
-opacity through autograd of the preprocess and the depth-order gather.
+row chunks, for CPU tensors. The trainer's macro step takes dg back to the
+parameters by hand (``ops/cuda_preprocess.py``). ``fused_view_loss_cuda``
+is the same loss under autograd: ``_RasterLossFn``'s backward is dg scaled
+by the loss cotangent, and gradients reach xyz, scales, quats and opacity
+through autograd of the preprocess and the depth-order gather.
 """
 
 from __future__ import annotations
@@ -51,8 +53,10 @@ IDX_GY0, IDX_GY1, IDX_GX0, IDX_GX1 = 11, 12, 13, 14
 
 CUDA_LOSSES = ("l2_gaussian", "l1_gaussian", "l1_masked")
 
-# kernel launches by wrapper; chip_smoke.py resets and reads these
-launches = {"raster_loss_grad": 0, "raster_loss": 0}
+# kernel launches by wrapper (K1, K2, and ops/cuda_preprocess.py's kernels
+# A and B); chip_smoke.py resets and reads these
+launches = {"raster_loss_grad": 0, "raster_loss": 0, "preprocess_pack": 0,
+            "preprocess_grad": 0}
 
 
 class ViewProfiles(NamedTuple):

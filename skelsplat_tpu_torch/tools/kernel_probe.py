@@ -23,6 +23,11 @@ the live launch's device time split by kernel. It times a kernel, so it
 needs the GPU and raises without one. The input builder ``probe_inputs``
 also runs on the CPU.
 
+``step_inputs`` builds a macro step's inputs for kernels A and B of
+``ops/cuda_preprocess.py``, and ``autograd_step`` the same step's losses
+and gradients through autograd, the reference both are held to (on the
+CPU too).
+
 Usage:
     python -m skelsplat_tpu_torch.tools.kernel_probe [--dead]
         [--live-slots 0 1 2 4 8 12 17]
@@ -106,6 +111,97 @@ def probe_inputs_batch(n_scenes: int, width: int = W, height: int = H,
                           widths=widths, perturb=perturb,
                           ring=3800.0 + 100.0 * s) for s in range(n_scenes)]
     return tuple(torch.cat(xs).contiguous() for xs in zip(*parts))
+
+
+def step_inputs(scene_type: str = "h36m", n_scenes: int = 1,
+                width: int = W, height: int = H, seed: int = 0,
+                device="cuda", behind_camera: bool = False,
+                beyond_clamp: bool = False, infinite_logit: bool = False):
+    """(params (S,N,·), cameras (S·4 views), prof, A = 4): the inputs of a
+    macro step that visits every view of ``n_scenes`` synthetic scenes,
+    as ``cuda_preprocess.view_forward`` takes them. Scene s is frame 0
+    of seed ``seed`` + s, its GT profiles from its initial Gaussians (the
+    trainer's prepare); its parameters are then moved off their start by a
+    numpy generator (xyz ±15 mm, log-scales ±0.3, quaternions ±0.3,
+    opacity logits 1 ± 1), so that every term of the gradient is live.
+    ``behind_camera`` puts scene 0's joint 4 behind camera 0 (culled
+    there); ``beyond_clamp`` puts its joint 7 in front of camera 1 at 1.35
+    tan(fov/2) off axis, past the EWA clamp, with scales of 665, 245
+    and 403 mm that reach into the image; ``infinite_logit`` sets every
+    opacity logit to +inf (the reference's initial value)."""
+    from skelsplat_tpu_torch import compat
+    from skelsplat_tpu_torch.core.cameras import FIELDS, Camera
+    from skelsplat_tpu_torch.core.gaussians import (N_JOINTS, PARAM_FIELDS,
+                                                    GaussianParams,
+                                                    init_params)
+    from skelsplat_tpu_torch.ops import heatmaps
+    from skelsplat_tpu_torch.synthetic import synthetic_inputs
+
+    dev = resolve_device(device)
+    n = N_JOINTS[scene_type]
+    rng = np.random.default_rng(seed + 1000)
+    params, cams, profs = [], [], []
+    for s in range(n_scenes):
+        init, _, p2d, cams_np = synthetic_inputs(
+            1, width, height, n_joints=n, seed=seed + s,
+            ring=3800.0 + 100.0 * s)
+        cam = compat.camera_from_numpy(cams_np, device=dev)
+        p = init_params(init[0], scene_type, 3.0, 1.0, device=dev)
+        spec = heatmaps.heatmap_spec(p.xyz, p.covariance(),
+                                     torch.as_tensor(p2d[0], device=dev),
+                                     cam, width, height)
+        profs.append(cr.view_profiles(spec, width, height))
+        f = {k: getattr(p, k).cpu().numpy() + rng.normal(0.0, sd, (n, w))
+             for k, sd, w in (("xyz", 15.0, 3), ("log_scales", 0.3, 3),
+                              ("quats", 0.3, 4))}
+        f["opacity_logit"] = 1.0 + rng.normal(0.0, 1.0, (n, 1))
+        if s == 0 and behind_camera:
+            c = cams_np["cam_center"][0].astype(np.float64)
+            away = c - f["xyz"].mean(axis=0)
+            f["xyz"][4] = c + 300.0 * away / np.linalg.norm(away)
+        if s == 0 and beyond_clamp:
+            tz = 3000.0
+            t = np.array([1.35 * cams_np["tan_fovx"][1] * tz, 0.0, tz, 1.0])
+            f["xyz"][7] = (np.linalg.inv(cams_np["view4"][1].astype(
+                np.float64)) @ t)[:3]
+            f["log_scales"][7] = (6.5, 5.5, 6.0)
+        if infinite_logit:
+            f["opacity_logit"][:] = np.inf
+        params.append(f)
+        cams.append(cam)
+    params = GaussianParams(*(
+        torch.as_tensor(np.stack([f[k] for f in params]), dtype=torch.float32,
+                        device=dev) for k in PARAM_FIELDS))
+    cameras = Camera(**{k: torch.cat([getattr(c, k) for c in cams])
+                        for k in FIELDS})
+    prof = cr.ViewProfiles(*(torch.cat(x) for x in zip(*profs)))
+    return params, cameras, prof, 4
+
+
+def autograd_step(params, cameras, prof, A: int, antialiasing: bool,
+                  loss_function: str, scene_type: str, consistency: str,
+                  lambda_consistency: float):
+    """(losses (V,), gradients by field (V,N,·)) of the macro step of
+    ``step_inputs``' outputs through autograd of
+    ``cuda_raster.make_cuda_view_loss`` with one parameter copy per view:
+    the renderer's step before kernels A and B, their reference."""
+    from skelsplat_tpu_torch.core.gaussians import (N_JOINTS, PARAM_FIELDS,
+                                                    SkeletonModel)
+    from skelsplat_tpu_torch.engine.trainer import TrainSettings
+
+    settings = TrainSettings(loss_function=loss_function,
+                             consistency_loss=consistency,
+                             lambda_consistency=lambda_consistency)
+    view_loss = cr.make_cuda_view_loss(
+        SkeletonModel(scene_type, N_JOINTS[scene_type]), settings,
+        prof.p2.shape[-1], prof.p1.shape[-1], antialiasing)
+    copies = params.map(lambda x: x.detach().repeat_interleave(A, dim=0)
+                        .requires_grad_(True))
+    with torch.enable_grad():
+        losses = view_loss(copies, cameras, prof, None)
+        grads = torch.autograd.grad(losses.sum(), [getattr(copies, f)
+                                                   for f in PARAM_FIELDS])
+    return losses.detach(), dict(zip(PARAM_FIELDS, grads))
 
 
 def keep_slots(pack, p1s, n: int, views=slice(None)):

@@ -85,6 +85,87 @@ def test_kernels_match_plain_versions(packed, l1):
     assert ((dg[live_views] - dgp[live_views]).abs() / scale).max().item() <= 1e-5
 
 
+# kernels A and B at each cell's shapes (scene type, scenes, W, H) and
+# small ones: antialiasing, a culled Gaussian, one past the EWA clamp, an
+# infinite opacity logit
+STEP_CASES = {
+    "h36m": ("h36m", 1, 1002, 1000, False, None),
+    "panoptic": ("panoptic", 1, 1920, 1080, False, None),
+    "batch8": ("h36m", 8, 1002, 1000, False, None),
+    "antialiasing": ("occlusion-person", 3, W, H, True, None),
+    "behind_camera": ("h36m", 3, W, H, False, "behind_camera"),
+    "beyond_clamp": ("h36m", 3, W, H, True, "beyond_clamp"),
+    "infinite_logit": ("panoptic", 3, W, H, False, "infinite_logit"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(STEP_CASES))
+def test_preprocess_kernels_match_plain_versions(card, case):
+    """Kernel A's slot records (order, rect and every float), order and
+    gathered profiles bitwise its plain version's on the card; kernel B's
+    losses and gradients, from the same K1 outputs, within 1e-5 of each
+    field's largest magnitude of the plain backward's; one launch each."""
+    from skelsplat_tpu_torch.core.gaussians import PARAM_FIELDS
+    from skelsplat_tpu_torch.ops import cuda_preprocess as cp
+    from skelsplat_tpu_torch.tools.kernel_probe import step_inputs
+
+    st, ns, w, h, aa, special = STEP_CASES[case]
+    params, cams, prof, A = step_inputs(
+        st, ns, w, h, device="cuda", **({special: True} if special else {}))
+    limbs = cp.limb_pairs("3D_length_consistency", st)
+    before = dict(cuda_raster.launches)
+    pack, order, p1s, p2s = cp.preprocess_pack(params, cams, prof, A, aa)
+    S, C, dg = cuda_raster.raster_loss_grad(pack, p1s, p2s, prof.img, False)
+    losses, grads = cp.preprocess_grad(params, cams, order, S, C, dg, A, w,
+                                       h, aa, limbs, 1e-2)
+    torch.cuda.synchronize()
+    assert {k: cuda_raster.launches[k] - before[k] for k in before} == {
+        "raster_loss_grad": 1, "raster_loss": 0, "preprocess_pack": 1,
+        "preprocess_grad": 1}
+    for got, want in zip((pack, order, p1s, p2s),
+                         cp.preprocess_pack_plain(params, cams, prof, A, aa)):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    ref_losses, ref = cp.preprocess_grad_plain(params, cams, order, S, C, dg,
+                                               A, w, h, aa, limbs, 1e-2)
+    pairs = [(losses, ref_losses)] + [(getattr(grads, f), getattr(ref, f))
+                                      for f in PARAM_FIELDS]
+    for got, want in pairs:
+        assert bool(torch.isfinite(got).all())
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    if special == "infinite_logit":
+        assert float(grads.opacity_logit.abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(STEP_CASES))
+def test_preprocess_grad_matches_autograd(card, case):
+    """Kernel B's losses and gradients, after kernel A and K1, within 1e-5
+    of each field's largest magnitude of the step they replaced on the
+    card: autograd of ``make_cuda_view_loss`` with one parameter copy per
+    view (``kernel_probe.autograd_step``)."""
+    from skelsplat_tpu_torch.core.gaussians import PARAM_FIELDS
+    from skelsplat_tpu_torch.ops import cuda_preprocess as cp
+    from skelsplat_tpu_torch.tools.kernel_probe import (autograd_step,
+                                                        step_inputs)
+
+    st, ns, w, h, aa, special = STEP_CASES[case]
+    params, cams, prof, A = step_inputs(
+        st, ns, w, h, device="cuda", **({special: True} if special else {}))
+    cons = "3D_length_consistency"
+    fwd = cp.view_forward(params, cams, prof, A, aa)
+    losses, grads = cp.preprocess_grad(params, cams, *fwd, A, w, h, aa,
+                                       cp.limb_pairs(cons, st), 1e-2)
+    ref_losses, ref = autograd_step(params, cams, prof, A, aa, "l2_gaussian",
+                                    st, cons, 1e-2)
+    pairs = [(losses, ref_losses)] + [(getattr(grads, f), ref[f])
+                                      for f in PARAM_FIELDS]
+    for got, want in pairs:
+        assert got.shape == want.shape
+        assert bool(torch.isfinite(got).all())
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
 @pytest.mark.cuda
 def test_calls_on_two_streams_overlap_safely(card):
     """A K1 call keeps its state (live list, per-view tickets, partials) in
@@ -532,9 +613,9 @@ def test_chain_returns_before_its_device_work_ends(card):
 @pytest.mark.cuda
 def test_replays_make_no_host_sync_and_count_k1(card):
     """A replay waits on nothing: 20 steps of a captured graph make no
-    synchronizing call, and each adds the graph's one K1 launch; a scene
-    of 500 iterations counts 125 K1 launches, the first one (which warms
-    up and captures its graph) too."""
+    synchronizing call, and each adds the graph's one launch of K1 and of
+    kernels A and B; a scene of 500 iterations counts 125 of each, the
+    first one (which warms up and captures its graph) too."""
     from skelsplat_tpu_torch.ops import cuda_raster as cr
 
     init, gt, p2d, cams_np = synthetic_inputs(2, W, H)
@@ -545,26 +626,31 @@ def test_replays_make_no_host_sync_and_count_k1(card):
         before = dict(cr.launches)
         tr.optimize_scene(init[s], p2d[s], cams, gt[s])
         torch.cuda.synchronize()
-        assert cr.launches["raster_loss_grad"] - \
-            before["raster_loss_grad"] == 125
+        for name in ("raster_loss_grad", "preprocess_pack",
+                     "preprocess_grad"):
+            assert cr.launches[name] - before[name] == 125, name
         assert cr.launches["raster_loss"] == before["raster_loss"]
     graph = next(iter(tr.graphs.values()))
-    assert graph.launches == {"raster_loss_grad": 1, "raster_loss": 0}
+    assert graph.launches == {"raster_loss_grad": 1, "raster_loss": 0,
+                              "preprocess_pack": 1, "preprocess_grad": 1}
     graph.state.step.zero_()     # 20 more steps from the first
     torch.cuda.synchronize()
-    before = cr.launches["raster_loss_grad"]
+    before = dict(cr.launches)
     assert _count_syncs(lambda: [graph.step() for _ in range(20)]) == 0
     torch.cuda.synchronize()
-    assert cr.launches["raster_loss_grad"] == before + 20
+    for name in ("raster_loss_grad", "preprocess_pack", "preprocess_grad"):
+        assert cr.launches[name] == before[name] + 20, name
 
 
 @pytest.mark.cuda
 def test_warm_chain_counts_its_graph_launches_and_device_intervals(card):
     """A warm chain of 2 scenes of 500 iterations launches 127 graphs a
-    scene (its prepare, 125 steps and its collect), and the tracing module
-    reads each scene's device interval and the gap before it from its
-    events; with detail on, each replay is a record with its own interval,
-    inside its scene's, and the results are bitwise those with it off."""
+    scene (its prepare, 125 steps and its collect), each step crediting
+    one launch of K1 and of kernels A and B, and the tracing module reads
+    each scene's device interval and the gap before it from its events;
+    with detail on, each replay is a record with its own interval, inside
+    its scene's, and the results are bitwise those with it off."""
+    from skelsplat_tpu_torch.ops import cuda_raster as cr
     import time
 
     from skelsplat_tpu_torch import tracing
@@ -579,6 +665,7 @@ def test_warm_chain_counts_its_graph_launches_and_device_intervals(card):
     wins, results = {}, {}
     for detail in (False, True):
         tracing.enable(detail)
+        before = dict(cr.launches)
         try:
             t0 = time.perf_counter()
             results[detail] = tr.optimize_scene_chain(hins)
@@ -586,6 +673,9 @@ def test_warm_chain_counts_its_graph_launches_and_device_intervals(card):
             t1 = time.perf_counter()
         finally:
             tracing.enable(False)
+        assert {k: cr.launches[k] - before[k] for k in before} == {
+            "raster_loss_grad": 250, "raster_loss": 0,
+            "preprocess_pack": 250, "preprocess_grad": 250}
         wins[detail] = win = tracing.window(t0, t1)
         assert win["units"] == 1 and not win["wrapped"]
         assert win["counters"]["graph_launches"] == 2 * 127
