@@ -28,8 +28,13 @@ Phases, each failing the script (nonzero exit) on any error:
              512 at 1920×1080 with 19): A's outputs bitwise its plain
              version's, B's losses and gradients within 1e-5 of each
              field's largest magnitude of its plain version's and of
-             autograd's (make_cuda_view_loss with per-view copies); each
-             timed beside its plain version and its bound by bytes.
+             autograd's (make_cuda_view_loss with per-view copies); then
+             kernel C (compose_adam) from B's outputs there, 125 macro
+             steps lean and with the full history against the torch
+             composite it replaces (compose_macro + record_step): every
+             state tensor bitwise but the telemetry norms (their largest
+             distance in ulp reported), one launch a step; each timed
+             beside its plain version and its bound by bytes.
 3. path    — one synthetic H36M frame (4 views at 1002×1000, 17 joints,
              500 iterations = 125 macro steps, l2_gaussian + limb
              consistency) through SceneTrainer.optimize_scene(renderer=
@@ -258,6 +263,10 @@ as "launches_tools"; in phase 12 (a)'s profiled captured frame as
 kernels A and B with K1's launch counts, each asserted equal to K1's on
 its path, and their times, plain times and bounds at the H36M, Panoptic
 and batch macro steps, the latter two as "*_panoptic" and "*_batch128";
+kernel C the same, its counts K1's but 0 on the fusion run and on phase
+14 (a)'s chain and batch (the routing keeps the torch composite there
+and under phase 12 (b)'s early stopping) and 125 a scene on the dense
+and fused scenes;
 K3 on the measurement path), "off_path_kernels" those
 the port holds that no path launches (K2, launches 0); the last line is
 {"ok": true, "device": {...}}. ``--profile`` adds a torch.profiler pass
@@ -281,11 +290,11 @@ MIXED_WIDTHS = (1002, 1000, 1002, 1000)
 ITERATIONS = 500
 TIMED_FRAMES = 3  # timed frames after the checked one
 TIMED_BATCHES = 2  # phase 7's timed batches of SCENE_BATCH frames
-# the kernels optimize_scene launches (K1, kernels A and B) and K3, the
+# the kernels optimize_scene launches (K1, kernels A, B and C) and K3, the
 # measurement path's; the port's other kernel, K2 (raster_loss), is the
 # no-grad loss, which the path never evaluates
 PATH_KERNELS = ("raster_loss_grad", "preprocess_pack", "preprocess_grad",
-                "issue_rate")
+                "compose_adam", "issue_rate")
 LIVE_SLOTS = ("0", "1", "2", "4", "8", "12", "17")
 TRACE_LAUNCHES = 5
 TRACE_ATTEMPTS = 50
@@ -525,12 +534,13 @@ def _rel_err(pairs) -> float:
 
 
 def phase_step_kernels():
-    """Kernels A and B at each of STEP_SHAPES' macro steps: A's outputs
+    """Kernels A, B and C at each of STEP_SHAPES' macro steps: A's outputs
     bitwise its plain version's, B's losses and gradients (from the same
-    K1 outputs) within STEP_RTOL of its plain version's and of autograd's;
+    K1 outputs) within STEP_RTOL of its plain version's and of autograd's,
+    C from B's outputs against the torch composite (``_check_compose_adam``);
     each timed beside its plain version and its bound by bytes (each input
     byte read once, each output byte written once, at the published
-    bandwidth). Returns the two kernel rows."""
+    bandwidth). Returns the three kernel rows."""
     from skelsplat_tpu_torch.core.gaussians import PARAM_FIELDS
     from skelsplat_tpu_torch.ops import cuda_preprocess as cp
     from skelsplat_tpu_torch.ops import cuda_raster as cr
@@ -570,7 +580,7 @@ def phase_step_kernels():
         torch.cuda.synchronize()
         assert {k: cr.launches[k] - before[k] for k in before} == {
             "raster_loss_grad": 1, "raster_loss": 0, "preprocess_pack": 1,
-            "preprocess_grad": 1}, (label, cr.launches)
+            "preprocess_grad": 1, "compose_adam": 0}, (label, cr.launches)
         for got, want in zip(out_a, fwd_plain()):
             assert got.dtype == want.dtype and torch.equal(got, want), label
         got = [losses] + [getattr(grads, f) for f in PARAM_FIELDS]
@@ -615,7 +625,106 @@ def phase_step_kernels():
             print(f"  {name} at {label}: {ms:.5f} ms/call device time "
                   f"({stream_ms:.5f} ms back to back); plain {plain_ms:.4f} "
                   f"ms; bound {bound_ms:.7f} ms by bytes", flush=True)
+        rows["compose_adam"] = _check_compose_adam(
+            rows.get("compose_adam"), label, suffix, st, params, losses,
+            grads)
     return list(rows.values())
+
+
+def _check_compose_adam(row, label: str, suffix: str, scene_type: str,
+                        params, losses, grads):
+    """Kernel C at one of STEP_SHAPES' macro steps, from kernel B's losses
+    and gradients there: 125 macro steps of it against the torch
+    composite it replaces (``compose_macro`` + ``record_step``) from the
+    same loop state, lean (the cells') and with the full history, every
+    state tensor bitwise but the telemetry norms, within NORM_ULPS, whose
+    largest distance in ulp it reports; one launch a step; then timed beside the composite
+    and its bound by bytes. Returns ``row`` (made on the first shape) with
+    this shape's fields."""
+    from skelsplat_tpu_torch.core.gaussians import SkeletonModel
+    from skelsplat_tpu_torch.engine import trainer as ttrainer
+    from skelsplat_tpu_torch.engine.optim import OptConfig
+    from skelsplat_tpu_torch.ops import cuda_raster as cr
+    from skelsplat_tpu_torch.ops.compose_adam import NORM_ULPS
+    from skelsplat_tpu_torch.tools.roofline import PEAK_BYTES_PER_S
+    from skelsplat_tpu_torch.tools.timing import cuda_ms
+    from skelsplat_tpu_torch.utils import tree_leaves
+
+    row = row or {"name": "compose_adam", "route": "cuda",
+                  "source": "skelsplat_tpu_torch/csrc/compose_adam.cu",
+                  "replaces": None, "launches": None, "max_abs_err": 0.0,
+                  "norm_ulps": 0, "bound_by": "bytes", "library_ms": None}
+    A = 4
+    n = params.xyz.shape[-2]
+    lead = tuple(params.xyz.shape[:-2])
+    opt = (OptConfig() if scene_type == "h36m" else
+           OptConfig(position_lr_init=5e-3, opacity_lr=5e-3))
+    tr = ttrainer.SceneTrainer(SkeletonModel(scene_type, n), opt,
+                               ttrainer.TrainSettings(), W, H,
+                               renderer="cuda", eager=True)
+    losses_v = losses.reshape(lead + (A,))
+    grads_v = grads.map(lambda g: g.reshape(lead + (A,)
+                                            + tuple(g.shape[1:])))
+    extent = torch.full(lead, 3000.0, device="cuda")
+    gt = params.xyz + 25.0
+
+    def kernel(st, lean):
+        return lambda: ttrainer.compose_adam_step(
+            tr.adam, st, losses_v, grads_v, gt, extent, lean)
+
+    def composite(st, lean):
+        def run():
+            carry, rec = ttrainer.compose_macro(
+                tr.adam, A, False, False, st.carry, st.step, losses_v,
+                grads_v, None, gt, extent, lean=lean)
+            ttrainer.record_step(st, carry, rec, lean)
+        return run
+
+    for lean in (True, False):
+        st_c = tr._loop_state(params, A, None, lean)
+        st_t = tr._loop_state(params, A, None, lean)
+        before = cr.launches["compose_adam"]
+        run_c, run_t = kernel(st_c, lean), composite(st_t, lean)
+        for _ in range(tr.n_macro):
+            run_c()
+            run_t()
+        torch.cuda.synchronize()
+        assert cr.launches["compose_adam"] == before + tr.n_macro, label
+        norms = [] if lean else [(st_c.error, st_t.error),
+                                 (st_c.error_rel, st_t.error_rel)]
+        for a, b in zip(tree_leaves(st_c), tree_leaves(st_t)):
+            if any(a is x for x, _ in norms):
+                continue
+            assert a.dtype == b.dtype and torch.equal(a, b), (label, lean)
+        for a, b in norms:
+            ulps = int((a.view(torch.int32).long()
+                        - b.view(torch.int32).long()).abs().max())
+            assert ulps <= NORM_ULPS, (label, lean, ulps)
+            row["norm_ulps"] = max(row["norm_ulps"], ulps)
+    assert int(st_c.step) == tr.n_macro
+    print(f"  kernel C at {label} ({int(np.prod(lead, dtype=np.int64))} "
+          f"scenes of N={n}): 125 macro steps, parameters, moments, step "
+          f"counts and history bitwise the torch composite's; telemetry "
+          f"norms within {row['norm_ulps']} ulp", flush=True)
+    # lean, as the cells run it: the losses row 0 takes every step
+    st_c = tr._loop_state(params, A, None, True)
+    st_t = tr._loop_state(params, A, None, True)
+    ms, stream_ms = cuda_ms(kernel(st_c, True), reps=200,
+                            each_kernel_once=True)
+    plain_ms, _ = cuda_ms(composite(st_t, True), reps=20, warmup=1)
+    S = int(np.prod(lead, dtype=np.int64))
+    # parameters and both moments in and out; xyz's A gradients and the
+    # other groups' last one, the losses, the step counts, extents and the
+    # counter in; the losses row, the step counts and the counter out
+    nbytes = (2 * 3 * 4 * S * 11 * n + 4 * S * (A * 3 * n + 8 * n)
+              + 4 * S * (A + 2) + 8 + 4 * S * (A + 1) + 8)
+    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    row.update({f"ms{suffix}": ms, f"plain_ms{suffix}": plain_ms,
+                f"bound_ms{suffix}": bound_ms})
+    print(f"  compose_adam at {label}: {ms:.5f} ms/call device time "
+          f"({stream_ms:.5f} ms back to back); plain (the torch composite) "
+          f"{plain_ms:.4f} ms; bound {bound_ms:.7f} ms by bytes", flush=True)
+    return row
 
 
 def make_trainer(iterations: int, renderer: str, eager: bool = False):
@@ -1314,7 +1423,7 @@ def phase_options(card: str):
           f"{summary['mean_seconds_per_scene']:.6f} s/scene; absolute MPJPE "
           f"{res['absolute']:.4f} mm; 1 scene, {ITERATIONS} iterations, "
           f"{N_VIEWS} views at {W}x{H}, on {card}", flush=True)
-    assert counts == _step_launches(0), counts
+    assert counts == _step_launches(0, ITERATIONS // 4), counts
     assert len(results) == 1 and np.isfinite(res["absolute"]), res
     dense_mpjpe = res["absolute"]
     dense_card_vs_cpu(h36m)
@@ -1330,7 +1439,7 @@ def phase_options(card: str):
     print(f"  view_fusion=confidence_weighted: launches {counts}; absolute "
           f"MPJPE {res['absolute']:.4f} mm, relative {res['relative']:.4f} "
           f"mm", flush=True)
-    assert counts == _step_launches(ITERATIONS // 4), counts
+    assert counts == _step_launches(ITERATIONS // 4, 0), counts
     assert np.isfinite(res["absolute"]), res
     row["launches_fusion"] = counts["raster_loss_grad"]
 
@@ -2103,7 +2212,7 @@ def phase_graphs(card: str, cli_s_per_scene: float):
         shutil.rmtree(run_dir, ignore_errors=True)
         results, counts = _train(["--config-name", "h36m.yaml", *base,
                                   *extra, f"hydra.run.dir={run_dir}"])
-        assert counts == _step_launches(CLI_SCENES * ITERATIONS // 4), \
+        assert counts == _step_launches(CLI_SCENES * ITERATIONS // 4, 0), \
             (mode, counts)
         runs[mode] = (run_dir, json.loads(
             (run_dir / "train_summary.json").read_text()))
@@ -2231,7 +2340,8 @@ def _captured_and_eager(make, inputs, runs=("captured", "eager",
             "peak_allocated": torch.cuda.max_memory_allocated(),
             "peak_reserved": torch.cuda.max_memory_reserved(),
             "launches": dict(cr.launches)})
-        assert records[-1]["launches"] == _step_launches(0), records[-1]
+        assert records[-1]["launches"] == _step_launches(
+            0, ITERATIONS // 4), records[-1]
         assert np.isfinite(xyz).all()
     for r in records[1:]:
         assert np.array_equal(r["xyz"], records[0]["xyz"]), \
@@ -2635,8 +2745,8 @@ def phase_prepare(card: str):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     launches = dict(cr.launches)
-    assert launches == _step_launches((CHAIN_GROUP + 1) * ITERATIONS // 4), \
-        launches
+    assert launches == _step_launches((CHAIN_GROUP + 1) * ITERATIONS // 4,
+                                      0), launches
     out["a"] = {"s_per_frame_captured": s_frame, "frames_s": frames[1:]}
     for name, (host, start, end, busy, params) in times.items():
         assert torch.isfinite(params.xyz).all(), name
@@ -2758,11 +2868,15 @@ def phase_prepare(card: str):
     return launches["raster_loss_grad"], split_counts["raster_loss_grad"], out
 
 
-def _step_launches(steps: int) -> dict:
+def _step_launches(steps: int, adam: int | None = None) -> dict:
     """The launch counters after ``steps`` macro steps of the kernel
-    renderer: one launch of kernel A, K1 and kernel B a step."""
+    renderer: one launch of kernel A, K1 and kernel B a step, and ``adam``
+    of kernel C (default ``steps``): one a macro step of any renderer
+    whose settings the routing sends to it (no early stopping, A = V, the
+    mean fusion), 0 where they keep the torch composite."""
     return {"raster_loss_grad": steps, "raster_loss": 0,
-            "preprocess_pack": steps, "preprocess_grad": steps}
+            "preprocess_pack": steps, "preprocess_grad": steps,
+            "compose_adam": steps if adam is None else adam}
 
 
 def _bench_launches(args) -> int:
@@ -3108,10 +3222,18 @@ def main():
           f"{json.dumps(child['findings'])}", flush=True)
 
     # every path's launch counts were asserted equal for K1, A and B
-    # (_step_launches); the profiled frame's are K1's kernel records
+    # (_step_launches); the profiled frame's are K1's kernel records.
+    # Kernel C's are K1's but where the routing keeps the torch composite
+    # (confidence-weighted fusion; the early stopping of phase 12 (b) and
+    # of phase 14 (a)'s chain and batch) and where a renderer with no K1
+    # steps (phases 8 (c) and 13's scenes)
     for row in step_rows:
         row.update({k: v for k, v in k1.items() if k.startswith("launches_")
                     and k != "launches_captured_frame"})
+        if row["name"] == "compose_adam":
+            row.update(launches_fusion=0, launches_chain_batch=0,
+                       launches_dense=ITERATIONS // 4,
+                       launches_fused=ITERATIONS // 4)
     rows += step_rows
     print(card)
     print(json.dumps({

@@ -40,8 +40,8 @@ need. Python's collector is off during a capture: a graph destroyed
 inside another's capture invalidates it. A capture or
 replay failure raises; nothing falls back to the eager loop.
 
-The kernel wrappers (K1's, and kernels A and B of
-``ops/cuda_preprocess.py``) count their launches in
+The kernel wrappers (K1's, kernels A and B of ``ops/cuda_preprocess.py``
+and kernel C of ``ops/compose_adam.py``) count their launches in
 ``cuda_raster.launches`` where they launch. During a capture they launch
 nothing, so the graph undoes the count that capture made, keeps it as the
 launches the graph holds, and adds them on every replay.

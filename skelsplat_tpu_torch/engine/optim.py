@@ -57,8 +57,9 @@ class AdamGroups:
         self.cfg = cfg
 
     def init(self, params: GaussianParams) -> AdamState:
-        zeros = params.map(torch.zeros_like)
-        return AdamState(m=zeros, v=zeros,
+        # m and v are buffers of their own: a step may write them in place
+        return AdamState(m=params.map(torch.zeros_like),
+                         v=params.map(torch.zeros_like),
                          t=torch.zeros(params.xyz.shape[:-2],
                                        dtype=torch.int32,
                                        device=params.xyz.device))

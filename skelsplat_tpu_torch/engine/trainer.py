@@ -8,7 +8,9 @@ the parameters are constant between optimizer steps, one macro step is:
 render all visited views at the current parameters, combine gradients,
 step. Here a macro step is a batch over the visited views (with the
 kernel renderer, one launch each of the preprocess, K1 and the backward
-for all A views), and the scene is a loop
+for all A views; without early stopping, with A = V and the mean fusion,
+one more launch, kernel C, composes, steps Adam and writes the loop
+state: ``compose_adam_step``), and the scene is a loop
 over macro steps that never waits on the device: every decision (early
 stop, freezing after it) is a tensor select, and the step reads its index
 from a device counter.
@@ -50,8 +52,9 @@ from skelsplat_tpu_torch.core.cameras import Camera, flatten_scenes
 from skelsplat_tpu_torch.core.gaussians import (PARAM_FIELDS, GaussianParams,
                                                 SkeletonModel, init_params)
 from skelsplat_tpu_torch.engine import graphs
-from skelsplat_tpu_torch.engine.optim import AdamGroups, OptConfig
-from skelsplat_tpu_torch.ops import cuda_preprocess, cuda_raster
+from skelsplat_tpu_torch.engine.optim import (BETA1, BETA2, EPS, AdamGroups,
+                                             OptConfig)
+from skelsplat_tpu_torch.ops import compose_adam, cuda_preprocess, cuda_raster
 from skelsplat_tpu_torch.ops import heatmaps as hm
 from skelsplat_tpu_torch.ops import rasterizer
 from skelsplat_tpu_torch.ops.fused import FUSED_LOSSES, make_fused_view_loss
@@ -300,6 +303,69 @@ class LoopState:
     error_rel: torch.Tensor | None
     stop_max: torch.Tensor          # (…,) int64 stop iteration, 0 = none
     step: torch.Tensor              # () int64: the next macro step's index
+
+
+def adam_kernel_serves(settings: TrainSettings, nviews: int) -> bool:
+    """Whether a macro step's composition, Adam and history writes are
+    ``compose_adam_step``'s (kernel C on the card): without early
+    stopping, with every view visited each macro step (A = V) and the
+    mean xyz fusion, for every renderer. Every other setting runs
+    ``compose_macro`` and ``record_step``."""
+    return (settings.early_stopping == "no_stopping"
+            and settings.accumulation_steps == nviews
+            and settings.view_fusion == "mean")
+
+
+def record_step(st: LoopState, carry, rec, lean: bool):
+    """``compose_macro``'s new carry and history record into the loop
+    state ``st``, in place, and the step counter advanced."""
+    at = st.step.reshape(1)
+    axis = st.stop_max.dim()     # the history's step axis
+    with tracing.section("skelsplat.step.history"):
+        for dst, src in zip(tree_leaves(st.carry), tree_leaves(carry),
+                            strict=True):
+            dst.copy_(src)
+        if lean:
+            st.losses.select(axis, 0).copy_(rec[0])
+        else:
+            st.losses.index_copy_(axis, at, rec[0].unsqueeze(axis))
+            st.error.index_copy_(axis, at, rec[1].unsqueeze(axis))
+            st.error_rel.index_copy_(axis, at, rec[2].unsqueeze(axis))
+        st.stop_max.copy_(torch.maximum(st.stop_max, rec[-1]))
+        st.step.add_(1)
+
+
+def compose_adam_step(adam: AdamGroups, st: LoopState, losses_v,
+                      grads_v: GaussianParams, pose_3d_gt, extent,
+                      lean: bool):
+    """A macro step's gradient composition, Adam update and history writes
+    into the loop state ``st``, in place, for the settings
+    ``adam_kernel_serves`` takes (no early stopping, A = V, the mean
+    fusion): one launch of kernel C (``ops/compose_adam.py``) on CUDA
+    tensors; on CPU tensors its plain version, ``compose_macro`` and
+    ``record_step``. ``losses_v`` (…,A) and ``grads_v`` (…,A,N,·) are the
+    visited views', ``pose_3d_gt`` (…,N,3) and ``extent`` (…) the
+    scenes'."""
+    A = losses_v.shape[-1]
+    if losses_v.device.type == "cpu":
+        carry, rec = compose_macro(adam, A, False, False, st.carry, st.step,
+                                   losses_v, grads_v, None, pose_3d_gt,
+                                   extent, lean=lean)
+        record_step(st, carry, rec, lean)
+        return
+    params, opt_state = st.carry[0], st.carry[1]
+    c = adam.cfg
+    with tracing.section("skelsplat.step.adam"):
+        compose_adam.compose_adam(
+            params, opt_state.m, opt_state.v, opt_state.t, st.step, losses_v,
+            grads_v, extent, st.losses, st.error, st.error_rel,
+            None if lean else pose_3d_gt, lr_init=c.position_lr_init,
+            lr_final=c.position_lr_final,
+            max_steps=c.position_lr_max_steps,
+            delay_steps=c.position_lr_delay_steps,
+            delay_mult=c.position_lr_delay_mult,
+            lrs=(c.scaling_lr, c.rotation_lr, c.opacity_lr), beta1=BETA1,
+            beta2=BETA2, eps=EPS)
 
 
 def _check_finite(k: int, A: int, losses_v, grads_v: GaussianParams,
@@ -729,37 +795,31 @@ class SceneTrainer:
         visited views' losses and gradients at the state's parameters
         (``view_grads(k, params)`` with ``k`` the device step counter),
         then compose + Adam + the early-stop window, all written into
-        ``state`` in place, and the counter advanced. The step index is
-        read on the device, never from Python, so a captured step serves
-        every step."""
+        ``state`` in place, and the counter advanced (``compose_adam_step``
+        where ``adam_kernel_serves``, else ``compose_macro`` and
+        ``record_step``). The step index is read on the device, never
+        from Python, so a captured step serves every step."""
+        if adam_kernel_serves(self.settings, nviews):
+            def step(st: LoopState):
+                losses_v, grads_v = view_grads(st.step, st.carry[0])
+                compose_adam_step(self.adam, st, losses_v, grads_v,
+                                  pose_3d_gt, extent, lean)
+                return losses_v, grads_v
+            return step
         A = self.settings.accumulation_steps
         use_stop = self.settings.early_stopping == "opt_early_stopping"
         general = A != nviews
-        idx_all = visit_order(self.n_macro, A, nviews, self.device)
         view_fusion = self.settings.view_fusion
+        idx_all = visit_order(self.n_macro, A, nviews, self.device)
 
         def step(st: LoopState):
             k = st.step
-            at = k.reshape(1)
-            axis = st.stop_max.dim()     # the history's step axis
             losses_v, grads_v = view_grads(k, st.carry[0])
             carry, rec = compose_macro(
                 self.adam, A, use_stop, general, st.carry, k, losses_v,
-                grads_v, idx_all.index_select(0, at).reshape(-1),
+                grads_v, idx_all.index_select(0, k.reshape(1)).reshape(-1),
                 pose_3d_gt, extent, view_fusion, lean=lean)
-            with tracing.section("skelsplat.step.history"):
-                for dst, src in zip(tree_leaves(st.carry),
-                                    tree_leaves(carry), strict=True):
-                    dst.copy_(src)
-                if lean:
-                    st.losses.select(axis, 0).copy_(rec[0])
-                else:
-                    st.losses.index_copy_(axis, at, rec[0].unsqueeze(axis))
-                    st.error.index_copy_(axis, at, rec[1].unsqueeze(axis))
-                    st.error_rel.index_copy_(axis, at,
-                                             rec[2].unsqueeze(axis))
-                st.stop_max.copy_(torch.maximum(st.stop_max, rec[-1]))
-                st.step.add_(1)
+            record_step(st, carry, rec, lean)
             return losses_v, grads_v
         return step
 

@@ -28,7 +28,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("raster_loss.cu", "issue_rate.cu", "preprocess.cu")
+SOURCES = ("raster_loss.cu", "issue_rate.cu", "preprocess.cu",
+           "compose_adam.cu")
 HEADERS = ("raster_math.cuh",)
 TILE = 16
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -137,6 +138,10 @@ def load_library() -> ctypes.CDLL:
             lib.skelsplat_preprocess_grad.argtypes = (
                 [vp] * 16 + [i32] * 15 + [ctypes.c_float] + [vp] * 6)
             lib.skelsplat_preprocess_grad.restype = i32
+            lib.skelsplat_compose_adam.argtypes = (
+                [vp] * 24 + [i32] * 4 + [ctypes.c_float] * 2 + [i32] * 2
+                + [ctypes.c_float] * 11 + [vp])
+            lib.skelsplat_compose_adam.restype = i32
             lib.skelsplat_issue_rate.argtypes = [vp, vp] + [i32] * 4 + [vp]
             lib.skelsplat_issue_rate.restype = i32
             lib.skelsplat_error_string.argtypes = [i32]
@@ -147,6 +152,13 @@ def load_library() -> ctypes.CDLL:
 
 def error_string(err: int) -> str:
     return load_library().skelsplat_error_string(err).decode()
+
+
+def check_launch(rc: int, name: str):
+    """Raise if a kernel's C entry point returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{error_string(rc)} (cudaError {rc})")
 
 
 def occupancy(with_grad: bool, l1: bool, slot_bound: int) -> dict:

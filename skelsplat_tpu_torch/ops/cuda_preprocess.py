@@ -394,14 +394,6 @@ def _kernel_inputs(params: GaussianParams, cameras) -> list:
     return [getattr(ps, f) for f in PARAM_FIELDS] + cams
 
 
-def _raise(rc: int, name: str):
-    from skelsplat_tpu_torch.ops import _build
-
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: "
-                           f"{_build.error_string(rc)} (cudaError {rc})")
-
-
 def preprocess_pack(params: GaussianParams, cameras,
                     prof: cuda_raster.ViewProfiles, A: int,
                     antialiasing: bool = False):
@@ -434,7 +426,7 @@ def preprocess_pack(params: GaussianParams, cameras,
             p1.data_ptr(), p2.data_ptr(), V, A, N, H, W,
             int(antialiasing), sms, pack.data_ptr(), order.data_ptr(),
             p1s.data_ptr(), p2s.data_ptr(), ctypes.c_void_p(stream))
-    _raise(rc, "preprocess_pack")
+    _build.check_launch(rc, "preprocess_pack")
     cuda_raster.launches["preprocess_pack"] += 1
     return pack, order, p1s, p2s
 
@@ -482,7 +474,7 @@ def preprocess_grad(params: GaussianParams, cameras, order, S, C, dg,
             grads.xyz.data_ptr(), grads.log_scales.data_ptr(),
             grads.quats.data_ptr(), grads.opacity_logit.data_ptr(),
             ctypes.c_void_p(stream))
-    _raise(rc, "preprocess_grad")
+    _build.check_launch(rc, "preprocess_grad")
     cuda_raster.launches["preprocess_grad"] += 1
     return losses, grads
 

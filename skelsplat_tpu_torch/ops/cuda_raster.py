@@ -53,10 +53,11 @@ IDX_GY0, IDX_GY1, IDX_GX0, IDX_GX1 = 11, 12, 13, 14
 
 CUDA_LOSSES = ("l2_gaussian", "l1_gaussian", "l1_masked")
 
-# kernel launches by wrapper (K1, K2, and ops/cuda_preprocess.py's kernels
-# A and B); chip_smoke.py resets and reads these
+# kernel launches by wrapper (K1, K2, ops/cuda_preprocess.py's kernels A
+# and B, ops/compose_adam.py's kernel C); chip_smoke.py resets and reads
+# these
 launches = {"raster_loss_grad": 0, "raster_loss": 0, "preprocess_pack": 0,
-            "preprocess_grad": 0}
+            "preprocess_grad": 0, "compose_adam": 0}
 
 
 class ViewProfiles(NamedTuple):

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from skelsplat_tpu_torch import compat
-from skelsplat_tpu_torch.ops import cuda_raster
+from skelsplat_tpu_torch.ops import compose_adam, cuda_raster
 from skelsplat_tpu_torch.synthetic import synthetic_inputs
 
 W, H = 240, 200
@@ -122,7 +122,7 @@ def test_preprocess_kernels_match_plain_versions(card, case):
     torch.cuda.synchronize()
     assert {k: cuda_raster.launches[k] - before[k] for k in before} == {
         "raster_loss_grad": 1, "raster_loss": 0, "preprocess_pack": 1,
-        "preprocess_grad": 1}
+        "preprocess_grad": 1, "compose_adam": 0}
     for got, want in zip((pack, order, p1s, p2s),
                          cp.preprocess_pack_plain(params, cams, prof, A, aa)):
         assert got.dtype == want.dtype and torch.equal(got, want)
@@ -164,6 +164,175 @@ def test_preprocess_grad_matches_autograd(card, case):
         assert got.shape == want.shape
         assert bool(torch.isfinite(got).all())
         assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+# kernel C at each cell's macro step: (scene axes, joints, optimizer
+# settings): h36m.chain32's, panoptic.chain32's and panoptic.batch128's
+# (128 scenes, 512 views), and a delayed xyz schedule with rotation at LR 0
+ADAM_CASES = {
+    "h36m": ((), 17, {}),
+    "panoptic": ((), 19, {"position_lr_init": 5e-3, "opacity_lr": 5e-3}),
+    "batch512": ((128,), 19, {"position_lr_init": 5e-3,
+                              "opacity_lr": 5e-3}),
+    "delayed": ((3,), 15, {"position_lr_delay_steps": 300,
+                           "position_lr_delay_mult": 0.01,
+                           "rotation_lr": 0.0}),
+}
+NORM_ULPS = compose_adam.NORM_ULPS
+
+
+def _ulps(a, b) -> int:
+    """The largest distance of two non-negative float32 tensors in units
+    in the last place."""
+    return int((a.view(torch.int32).long()
+                - b.view(torch.int32).long()).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lean", [True, False])
+@pytest.mark.parametrize("case", list(ADAM_CASES))
+def test_compose_adam_matches_torch_composite(card, case, lean):
+    """Kernel C against the torch composite it replaces (``compose_macro``
+    and ``record_step``) on the card, over all 125 macro steps of a
+    scene from the same state and gradients: parameters, moments, step
+    counts, the step counter, the losses rows and the stop fields bitwise
+    after every step; the telemetry norms within NORM_ULPS; one launch a
+    step."""
+    import numpy as np
+
+    from skelsplat_tpu_torch.core.gaussians import (GaussianParams,
+                                                    SkeletonModel)
+    from skelsplat_tpu_torch.engine import trainer as ttrainer
+    from skelsplat_tpu_torch.engine.optim import OptConfig
+    from skelsplat_tpu_torch.engine.trainer import SceneTrainer, TrainSettings
+    from skelsplat_tpu_torch.utils import tree_leaves
+
+    lead, n, opt = ADAM_CASES[case]
+    A = 4
+    scene_type = {17: "h36m", 19: "panoptic", 15: "occlusion-person"}[n]
+    tr = SceneTrainer(SkeletonModel(scene_type, n),
+                      OptConfig(**opt), TrainSettings(), W, H,
+                      renderer="cuda", eager=True)
+    rng = np.random.default_rng(11)
+
+    def cuda(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).cuda()
+
+    widths = (3, 3, 4, 1)
+    params = GaussianParams(*(cuda(rng.normal(0.0, 1.0, lead + (n, w)))
+                              for w in widths))
+    gt = cuda(rng.normal(0.0, 300.0, lead + (n, 3)))
+    extent = cuda(rng.uniform(500.0, 5000.0, lead))
+    st_c = tr._loop_state(params, A, None, lean)
+    st_t = tr._loop_state(params, A, None, lean)
+    norms = [] if lean else [(st_c.error, st_t.error),
+                             (st_c.error_rel, st_t.error_rel)]
+    exact = [(a, b) for a, b in zip(tree_leaves(st_c), tree_leaves(st_t))
+             if all(a is not x for x, _ in norms)]
+    worst = 0
+    for k in range(tr.n_macro):
+        losses_v = cuda(rng.uniform(0.1, 2.0, lead + (A,)))
+        grads_v = GaussianParams(*(
+            cuda(rng.normal(0.0, 1.0, lead + (A, n, w))
+                 * 10.0 ** rng.uniform(-4, 1, lead + (A, n, w)))
+            for w in widths))
+        before = cuda_raster.launches["compose_adam"]
+        ttrainer.compose_adam_step(tr.adam, st_c, losses_v, grads_v, gt,
+                                   extent, lean)
+        assert cuda_raster.launches["compose_adam"] == before + 1
+        carry, rec = ttrainer.compose_macro(
+            tr.adam, A, False, False, st_t.carry, st_t.step, losses_v,
+            grads_v, None, gt, extent, lean=lean)
+        ttrainer.record_step(st_t, carry, rec, lean)
+        for i, (a, b) in enumerate(exact):
+            assert a.dtype == b.dtype and torch.equal(a, b), (k, i)
+        for a, b in norms:
+            worst = max(worst, _ulps(a, b))
+    assert int(st_c.step) == tr.n_macro
+    assert worst <= NORM_ULPS, worst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lean", [True, False])
+def test_kernel_c_scene_matches_torch_composite(card, lean, monkeypatch):
+    """A captured scene of 500 iterations through kernel C against the
+    same scene with the routing sent to the torch composite: parameters
+    and losses bitwise, the telemetry norms within NORM_ULPS; 125 launches
+    of kernel C, and none on the torch route."""
+    from skelsplat_tpu_torch.engine import trainer as ttrainer
+
+    init, gt, p2d, cams_np = synthetic_inputs(1, W, H)
+    cams = compat.camera_from_numpy(cams_np, device="cpu")
+    results, counts = {}, {}
+    for route in ("kernel_c", "torch"):
+        if route == "torch":
+            monkeypatch.setattr(ttrainer, "adam_kernel_serves",
+                                lambda settings, nviews: False)
+        tr = _trainer(500)
+        before = cuda_raster.launches["compose_adam"]
+        results[route] = tr.optimize_scene(init[0], p2d[0], cams, gt[0],
+                                           lean=lean)
+        torch.cuda.synchronize()
+        counts[route] = cuda_raster.launches["compose_adam"] - before
+    assert counts == {"kernel_c": 125, "torch": 0}
+    (p_c, h_c), (p_t, h_t) = results["kernel_c"], results["torch"]
+    _assert_same(p_c, p_t)
+    for f in ("losses", "stopped_at"):
+        assert torch.equal(getattr(h_c, f), getattr(h_t, f)), f
+    for f in ("error", "error_rel"):
+        assert _ulps(getattr(h_c, f), getattr(h_t, f)) <= NORM_ULPS, f
+
+
+@pytest.mark.cuda
+def test_compose_adam_on_two_streams(card):
+    """Kernel C keeps its count of finished blocks in the caller's step
+    counter: two batches of 128 scenes, each with its own loop state,
+    stepped 125 times on two streams in flight together, end bitwise where
+    each ends alone, with their counters at 125."""
+    import numpy as np
+
+    from skelsplat_tpu_torch.core.gaussians import (GaussianParams,
+                                                    SkeletonModel)
+    from skelsplat_tpu_torch.engine import trainer as ttrainer
+    from skelsplat_tpu_torch.engine.optim import OptConfig
+    from skelsplat_tpu_torch.engine.trainer import SceneTrainer, TrainSettings
+
+    A, n, lead = 4, 19, (128,)
+    tr = SceneTrainer(SkeletonModel("panoptic", n), OptConfig(),
+                      TrainSettings(), W, H, renderer="cuda", eager=True)
+    rng = np.random.default_rng(5)
+
+    def cuda(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).cuda()
+
+    widths = (3, 3, 4, 1)
+    batches = []
+    for _ in range(2):
+        params = GaussianParams(*(cuda(rng.normal(0.0, 1.0, lead + (n, w)))
+                                  for w in widths))
+        losses_v = cuda(rng.uniform(0.1, 2.0, lead + (A,)))
+        grads_v = GaussianParams(*(cuda(rng.normal(0.0, 1.0,
+                                                   lead + (A, n, w)))
+                                   for w in widths))
+        gt = cuda(rng.normal(0.0, 300.0, lead + (n, 3)))
+        extent = cuda(rng.uniform(500.0, 5000.0, lead))
+        batches.append((params, (losses_v, grads_v, gt, extent)))
+
+    def run(streams):
+        states = [tr._loop_state(p, A, None, True) for p, _ in batches]
+        torch.cuda.synchronize()
+        for _ in range(tr.n_macro):
+            for st, (_, args), stream in zip(states, batches, streams):
+                with torch.cuda.stream(stream):
+                    ttrainer.compose_adam_step(tr.adam, st, *args, True)
+        torch.cuda.synchronize()
+        return states
+
+    alone = run([torch.cuda.current_stream()] * 2)
+    together = run([torch.cuda.Stream() for _ in batches])
+    for a, b in zip(alone, together):
+        assert int(b.step) == tr.n_macro
+        _assert_same(a, b)
 
 
 @pytest.mark.cuda
@@ -614,7 +783,7 @@ def test_chain_returns_before_its_device_work_ends(card):
 def test_replays_make_no_host_sync_and_count_k1(card):
     """A replay waits on nothing: 20 steps of a captured graph make no
     synchronizing call, and each adds the graph's one launch of K1 and of
-    kernels A and B; a scene of 500 iterations counts 125 of each, the
+    kernels A, B and C; a scene of 500 iterations counts 125 of each, the
     first one (which warms up and captures its graph) too."""
     from skelsplat_tpu_torch.ops import cuda_raster as cr
 
@@ -627,18 +796,20 @@ def test_replays_make_no_host_sync_and_count_k1(card):
         tr.optimize_scene(init[s], p2d[s], cams, gt[s])
         torch.cuda.synchronize()
         for name in ("raster_loss_grad", "preprocess_pack",
-                     "preprocess_grad"):
+                     "preprocess_grad", "compose_adam"):
             assert cr.launches[name] - before[name] == 125, name
         assert cr.launches["raster_loss"] == before["raster_loss"]
     graph = next(iter(tr.graphs.values()))
     assert graph.launches == {"raster_loss_grad": 1, "raster_loss": 0,
-                              "preprocess_pack": 1, "preprocess_grad": 1}
+                              "preprocess_pack": 1, "preprocess_grad": 1,
+                              "compose_adam": 1}
     graph.state.step.zero_()     # 20 more steps from the first
     torch.cuda.synchronize()
     before = dict(cr.launches)
     assert _count_syncs(lambda: [graph.step() for _ in range(20)]) == 0
     torch.cuda.synchronize()
-    for name in ("raster_loss_grad", "preprocess_pack", "preprocess_grad"):
+    for name in ("raster_loss_grad", "preprocess_pack", "preprocess_grad",
+                 "compose_adam"):
         assert cr.launches[name] == before[name] + 20, name
 
 
@@ -646,7 +817,7 @@ def test_replays_make_no_host_sync_and_count_k1(card):
 def test_warm_chain_counts_its_graph_launches_and_device_intervals(card):
     """A warm chain of 2 scenes of 500 iterations launches 127 graphs a
     scene (its prepare, 125 steps and its collect), each step crediting
-    one launch of K1 and of kernels A and B, and the tracing module reads
+    one launch of K1 and of kernels A, B and C, and the tracing module reads
     each scene's device interval and the gap before it from its events;
     with detail on, each replay is a record with its own interval, inside
     its scene's, and the results are bitwise those with it off."""
@@ -675,7 +846,8 @@ def test_warm_chain_counts_its_graph_launches_and_device_intervals(card):
             tracing.enable(False)
         assert {k: cr.launches[k] - before[k] for k in before} == {
             "raster_loss_grad": 250, "raster_loss": 0,
-            "preprocess_pack": 250, "preprocess_grad": 250}
+            "preprocess_pack": 250, "preprocess_grad": 250,
+            "compose_adam": 250}
         wins[detail] = win = tracing.window(t0, t1)
         assert win["units"] == 1 and not win["wrapped"]
         assert win["counters"]["graph_launches"] == 2 * 127
