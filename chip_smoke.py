@@ -34,7 +34,15 @@ Phases, each failing the script (nonzero exit) on any error:
              composite it replaces (compose_macro + record_step): every
              state tensor bitwise but the telemetry norms (their largest
              distance in ulp reported), one launch a step; each timed
-             beside its plain version and its bound by bytes.
+             beside its plain version and its bound by bytes. Last, K1
+             at each benchmark cell's call (k1_variants.CELLS: 4 views
+             of 1002×1000 with 17 joints, 4 of 1920×1080 with 19, 128
+             Panoptic frames' 512 views): bitwise its run of one, the
+             views on both sides of each of the tile kernel's 256-view
+             windows (all views of a chain's call) held to its plain
+             version as above, the batch's 512 views bitwise each
+             scene's own 4-view call, each kernel's device time, its
+             bound and its run length.
 3. path    — one synthetic H36M frame (4 views at 1002×1000, 17 joints,
              500 iterations = 125 macro steps, l2_gaussian + limb
              consistency) through SceneTrainer.optimize_scene(renderer=
@@ -181,7 +189,11 @@ Phases, each failing the script (nonzero exit) on any error:
              and PLY bytes equal, s/scene of each; (c) phase 7's 10
              scenes in its batches (8 + 2) through optimize_scene_batch,
              eager and captured, twice each: xyz bitwise, and bitwise
-             phase 7's batched PLYs, s/scene of each second pass.
+             phase 7's batched PLYs, s/scene of each second pass. On
+             each of (a), (b) and (c), the tracing counter
+             k1_run_length must hold every K1 call at the run length
+             cuda_raster.run_length gives its shape (captured steps
+             counted per replay).
 13. renderers — the fused and dense renderers' scenes as captured
              programs, in this call: (a) phase 8 (c)'s dense soft-argmax
              scene (l1_masked_huber, phase 6's first scene) through
@@ -382,6 +394,10 @@ STEP_SHAPES = (("h36m", "h36m", 1, 1002, 1000),
 # prior's weight there, 1,000x the configs' so that it shows
 STEP_RTOL = 1e-5
 STEP_LAMBDA = 1e-2
+# the tile kernel reads its views' list lengths 256 views (its block) at a
+# time; phase 2 holds the views on both sides of each window's edge to
+# the plain version
+K1_WINDOW = 256
 
 
 def kernel_inputs(widths, behind_camera: bool, seed: int,
@@ -524,7 +540,77 @@ def phase_kernels():
     print(f"  raster_loss_grad on {timed_b[0].shape[0]} views: {ms:.4f} "
           f"ms/call device time ({stream_ms:.4f} ms back to back); plain "
           f"{plain_ms:.2f} ms; bound {b_ms:.6f} ms by {b_by}", flush=True)
+    rows[0]["cells"] = k1_at_cells()
     return rows, phase_step_kernels(), timed, timed_b
+
+
+def k1_run_length(V: int, width: int, height: int, n_joints: int) -> int:
+    """The run length K1's tile kernel takes on a call over V views."""
+    from skelsplat_tpu_torch.ops import _build, cuda_raster as cr
+
+    return cr.run_length(V, _build.n_tiles(width, height), cr.persistent_grid(
+        torch.cuda.current_device(), True, False, n_joints))
+
+
+def k1_at_cells() -> dict:
+    """K1 at each benchmark cell's call (``k1_variants.CELLS``): each
+    kernel's device time, the bound and the tile kernel's run length; the
+    outputs bitwise those of a run of one, the views on both sides of each
+    ``K1_WINDOW`` edge (every view of a 4-view call) within phase 2's
+    tolerances of the plain version, and a batch's views bitwise each
+    scene's own 4-view call."""
+    from skelsplat_tpu_torch.ops import cuda_raster as cr
+    from skelsplat_tpu_torch.tools import k1_variants
+    from skelsplat_tpu_torch.tools.roofline import kernel_bound
+    from skelsplat_tpu_torch.tools.timing import cuda_ms
+
+    out = {}
+    for cell, w, h, n, scenes in k1_variants.CELLS:
+        x = k1_variants.cell_inputs(w, h, n, scenes)
+        V = x[0].shape[0]
+        R = k1_run_length(V, w, h, n)
+        got = cr.raster_loss_grad(*x, False)
+        one = cr._launch(*x, False, True, run=1)[:3]
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, one)), \
+            f"{cell}: K1 at R = {R} differs from R = 1"
+        views = sorted({v for e in range(K1_WINDOW, V, K1_WINDOW)
+                        for v in range(e - N_VIEWS, e + N_VIEWS)}
+                       | set(range(max(V - N_VIEWS, 0), V)))
+        S, C, dg = (t[views] for t in got)
+        Sp, Cp, dgp = cr.raster_loss_grad_plain(*(t[views] for t in x),
+                                                False)
+        torch.cuda.synchronize()
+        assert torch.equal(C, Cp) and bool((C > 0).all()), (cell, C, Cp)
+        torch.testing.assert_close(S, Sp, rtol=1e-5, atol=0)
+        rel = dg_rel_err(dg, dgp)
+        assert float(rel.max()) <= DG_RTOL, (cell, rel.tolist())
+        for s in range(scenes if scenes > 1 else 0):
+            sl = slice(N_VIEWS * s, N_VIEWS * (s + 1))
+            own = cr.raster_loss_grad(*(t[sl].contiguous() for t in x), False)
+            assert all(torch.equal(a, b[sl]) for a, b in zip(own, got)), \
+                f"{cell}: scene {s} differs from its own 4-view call"
+        per = {}
+        ms, _ = cuda_ms(lambda: cr.raster_loss_grad(*x, False),
+                        reps=20 if scenes > 1 else 200,
+                        each_kernel_once=True, per_kernel=per)
+        b_ms, b_by = kernel_bound(*x, True)["published"]
+        tile = sum(t for k, t in per.items() if "raster_loss_live" in k)
+        lists = sum(t for k, t in per.items() if "live_tiles" in k)
+        out[cell] = {"views": V, "run_length": R, "ms": ms, "tile_ms": tile,
+                     "live_tiles_ms": lists, "bound_ms": b_ms,
+                     "bound_by": b_by, "plain_views": views,
+                     "dg_rel_err": rel.tolist()}
+        print(f"  K1 at {cell}'s call ({V} views of {w}x{h}, {n} joints, "
+              f"R = {R}, bitwise R = 1"
+              + (" and each scene's own call" if scenes > 1 else "")
+              + f"; views {views[0]}..{views[-1]} ({len(views)}) against "
+              f"plain: C exact, dg rel err per component "
+              f"{[float(f'{r:.3g}') for r in rel.tolist()]}): {ms:.4f} "
+              f"ms/call device time (raster_loss_live {tile:.4f}, "
+              f"live_tiles {lists:.4f}); bound {b_ms:.6f} ms by {b_by}",
+              flush=True)
+    return out
 
 
 def _rel_err(pairs) -> float:
@@ -2133,7 +2219,9 @@ def phase_graphs(card: str, cli_s_per_scene: float):
     Returns the JSON-able findings."""
     import shutil
 
-    from skelsplat_tpu_torch import compat
+    from collections import Counter
+
+    from skelsplat_tpu_torch import compat, tracing
     from skelsplat_tpu_torch.core.cameras import stack_cameras
     from skelsplat_tpu_torch.data import cameras_io, ply
     from skelsplat_tpu_torch.data.loader import DataLoader
@@ -2158,6 +2246,7 @@ def phase_graphs(card: str, cli_s_per_scene: float):
     assert np.array_equal(xyz["eager"], xyz["captured"]), \
         float(np.abs(xyz["eager"] - xyz["captured"]).max())
     times = {m: [] for m in trainers}
+    runs_before = Counter(tracing.counters["k1_run_length"])
     for s in range(1, 1 + GRAPH_FRAMES):
         got = {}
         for m in trainers:
@@ -2170,6 +2259,9 @@ def phase_graphs(card: str, cli_s_per_scene: float):
             assert dict(cr.launches) == _step_launches(ITERATIONS // 4), \
                 (m, cr.launches)
         assert np.array_equal(got["eager"], got["captured"]), s
+    runs_a = _runs_since(runs_before)
+    assert runs_a == {str(k1_run_length(N_VIEWS, W, H, N_JOINTS)):
+                      2 * GRAPH_FRAMES * ITERATIONS // 4}, runs_a
     (graph,) = trainers["captured"].graphs.values()
     s_frame = {m: float(np.median(t)) for m, t in times.items()}
     tiles, lists, busy, wall_p, sessions = _frame_profile(
@@ -2186,7 +2278,7 @@ def phase_graphs(card: str, cli_s_per_scene: float):
         "device_busy_s": busy,
         "busy_share_of_frame": busy / s_frame["captured"],
         "busy_share_of_profiled_wall": busy / wall_p,
-        "profile_sessions": sessions}
+        "profile_sessions": sessions, "k1_run_length": runs_a}
     print(f"  (a) one H36M frame ({ITERATIONS} iterations, 4 views at "
           f"{W}x{H}), xyz bitwise eager = captured on {1 + GRAPH_FRAMES} "
           f"frames: eager {s_frame['eager']:.6f} s/frame, captured "
@@ -2197,7 +2289,8 @@ def phase_graphs(card: str, cli_s_per_scene: float):
           f"{graph.instantiate_seconds:.4f} s, {graph.nodes} nodes a graph; "
           f"K1 launches {ITERATIONS // 4} (counter) and {tiles} (profiler); "
           f"device busy {busy:.4f} s = {busy / s_frame['captured']:.4f} of "
-          f"a captured frame on {card}", flush=True)
+          f"a captured frame; K1 calls by run length over the timed eager "
+          f"and captured frames {runs_a} on {card}", flush=True)
     assert tiles == ITERATIONS // 4
 
     # (b) phase 6's tree through the CLI: chained against serial
@@ -2205,15 +2298,19 @@ def phase_graphs(card: str, cli_s_per_scene: float):
     base = [f"dataset.data_root={root}", f"dataset.end_scene_id={CLI_SCENES}",
             "debug.save_images=false",
             "training.early_stopping=opt_early_stopping"]
-    runs = {}
+    runs, runs_b = {}, {}
     for mode, extra in (("chained", [f"training.fetch_scenes={CLI_SCENES}"]),
                         ("serial", ["training.pipeline_scenes=false"])):
         run_dir = GRAPH_DIR / mode
         shutil.rmtree(run_dir, ignore_errors=True)
+        runs_before = Counter(tracing.counters["k1_run_length"])
         results, counts = _train(["--config-name", "h36m.yaml", *base,
                                   *extra, f"hydra.run.dir={run_dir}"])
         assert counts == _step_launches(CLI_SCENES * ITERATIONS // 4, 0), \
             (mode, counts)
+        runs_b[mode] = _runs_since(runs_before)
+        assert runs_b[mode] == {str(k1_run_length(N_VIEWS, W, H, N_JOINTS)):
+                                counts["raster_loss_grad"]}, runs_b
         runs[mode] = (run_dir, json.loads(
             (run_dir / "train_summary.json").read_text()))
     (cdir, chained), (sdir, serial) = runs["chained"], runs["serial"]
@@ -2227,13 +2324,15 @@ def phase_graphs(card: str, cli_s_per_scene: float):
         assert (cdir / rel).read_bytes() == (sdir / rel).read_bytes(), rel
     out["b"] = {"s_per_scene_chained": chained["mean_seconds_per_scene"],
                 "s_per_scene_serial": serial["mean_seconds_per_scene"],
-                "stopped_at": [c["stopped_at"] for c in chained["scenes"]]}
+                "stopped_at": [c["stopped_at"] for c in chained["scenes"]],
+                "k1_run_length": runs_b}
     print(f"  (b) phase 6's tree, opt_early_stopping: chained "
           f"(fetch_scenes={CLI_SCENES}) {out['b']['s_per_scene_chained']:.6f} "
           f"s/scene, pipeline_scenes=false "
           f"{out['b']['s_per_scene_serial']:.6f} s/scene (phase 6, "
           f"save_images, {cli_s_per_scene:.6f}); summary rows and PLYs "
-          f"bitwise; stops {out['b']['stopped_at']} on {card}", flush=True)
+          f"bitwise; stops {out['b']['stopped_at']}; K1 calls by run length "
+          f"{runs_b} on {card}", flush=True)
 
     # (c) phase 7's batched sweep, captured against eager
     broot = BATCH_DIR / "synth-h36m"
@@ -2264,6 +2363,7 @@ def phase_graphs(card: str, cli_s_per_scene: float):
 
     sweep_s = {m: [] for m in batch_trainers}
     xyz_b = {}
+    runs_before = Counter(tracing.counters["k1_run_length"])
     for rep in range(2):     # the first pass warms up and captures
         for m in batch_trainers:
             torch.cuda.synchronize()
@@ -2271,6 +2371,12 @@ def phase_graphs(card: str, cli_s_per_scene: float):
             xyz_b[m] = sweep(m)
             sweep_s[m].append(time.perf_counter() - t0)
         assert np.array_equal(xyz_b["eager"], xyz_b["captured"]), rep
+    runs_c = _runs_since(runs_before)
+    want = Counter()
+    for g in groups:     # 125 calls a group, in each of 2 passes of 2 modes
+        want[str(k1_run_length(N_VIEWS * len(g), W, H, N_JOINTS))] += \
+            4 * ITERATIONS // 4
+    assert runs_c == dict(want), (runs_c, want)
     cli_pc = BATCH_DIR / f"run_b{SCENE_BATCH}" / "point_cloud" / \
         f"iteration_{ITERATIONS}"
     for r, x in zip(recs, xyz_b["captured"]):
@@ -2280,15 +2386,25 @@ def phase_graphs(card: str, cli_s_per_scene: float):
     out["c"] = {"s_per_scene_eager": sweep_s["eager"][-1] / n,
                 "s_per_scene_captured": sweep_s["captured"][-1] / n,
                 "warm_up_pass_s": {m: v[0] for m, v in sweep_s.items()},
-                "graphs": len(batch_trainers["captured"].graphs)}
+                "graphs": len(batch_trainers["captured"].graphs),
+                "k1_run_length": runs_c}
     print(f"  (c) phase 7's {n} scenes in batches of {SCENE_BATCH} "
           f"({[len(g) for g in groups]}): eager "
           f"{out['c']['s_per_scene_eager']:.6f} s/scene, captured "
           f"{out['c']['s_per_scene_captured']:.6f} s/scene (second pass; "
           f"the first {sweep_s['eager'][0]:.3f} and "
           f"{sweep_s['captured'][0]:.3f} s); bitwise, and the captured xyz "
-          f"bitwise phase 7's PLYs, on {card}", flush=True)
+          f"bitwise phase 7's PLYs; K1 calls by run length {runs_c}, on "
+          f"{card}", flush=True)
     return out
+
+
+def _runs_since(before) -> dict:
+    """K1's calls by run length (the tracing counter ``k1_run_length``)
+    since the counts ``before``."""
+    from skelsplat_tpu_torch import tracing
+
+    return dict(tracing.counters["k1_run_length"] - before)
 
 
 def _macro_step_without_sync(trainer, inputs):

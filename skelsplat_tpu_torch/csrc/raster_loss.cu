@@ -23,24 +23,43 @@
 //     with no live tile gets S = C = dg = 0 here. A dead tile costs one AND
 //     of two masks, and the count of live tiles never reaches the host.
 //   * raster_loss_live runs a persistent grid (the resident blocks of every
-//     SM, 3 of 256 threads each) over the views' lists, one entry at a
-//     time: one thread per pixel of the 16x16 tile (the reference's tile,
-//     so the rect gate is uniform over a block). The block stages the
-//     view's slot records and the tile's 16 rows of p1 and 16 columns of p2
-//     per flagged slot in shared memory, then walks the slots front to back
-//     (pass 1: S, C, and per render slot its T and live alpha, in registers
-//     sized by a compile-time slot bound NS from N) and back to front (pass
-//     2: the gradient, recomputing gt, the mask and slot_alpha, each slot's
-//     six components folded across the warp in 8 shuffles). Each entry
-//     writes its S and C at its list position and, per slot whose rect
-//     covers it, the six dg components at the tile's position in the slot's
-//     rect. The block that finishes a view's last entry (a per-view counter
-//     in the call's own buffers, zeroed by live_tiles) sums the view: S and
-//     C over its list by a block-wide tree, each slot's dg over its rect
-//     (~10-50 tiles) by one warp, so no thread walks the list serially.
-//     No float atomics and fixed orders: two runs on the same inputs give
-//     bitwise-equal results. Every call has its own buffers, so calls on
-//     different streams may overlap.
+//     SM, 3 of 256 threads each) over runs of R consecutive entries of one
+//     view's list (the last run of a view may be shorter; R comes from the
+//     host, ops/cuda_raster.py::run_length, by the call's shape alone). One
+//     thread per pixel of the 16x16 tile (the reference's tile, so the rect
+//     gate is uniform over a block). A run stages the view's slot records
+//     and the run's list records in shared memory once; then, entry by
+//     entry, the 16 rows of p1 and 16 columns of p2 of each flagged slot
+//     arrive by cp.async in a ring of STAGES buffers, the next entry's
+//     rows in flight while the block computes the current one. The block
+//     walks the slots front to back (pass 1: S, C, and per render slot its
+//     T and live alpha, in registers sized by a compile-time slot bound NS
+//     from N) and back to front (pass 2: the gradient, recomputing gt, the
+//     mask and slot_alpha, each slot's six components folded across the
+//     warp in 8 shuffles). Each entry writes its S and C at its list
+//     position and, per slot whose rect covers it, the six dg components at
+//     the tile's position in the slot's rect. A run takes one ticket of its
+//     view (a per-view counter of finished runs in the call's own buffers,
+//     zeroed by live_tiles, one fence and one atomic a run); the block
+//     that takes a view's last ticket sums the view: S and C over its list
+//     by a block-wide tree, each slot's dg over its rect (~10-50 tiles) by
+//     one warp, so no thread walks the list serially. Which run a block
+//     takes next comes from the list lengths of a window of 256 views read
+//     once into shared memory.
+//     No float atomics and fixed orders: every entry's partials and every
+//     view's sum are the same for every R, so two runs on the same inputs,
+//     at any R, give bitwise-equal results. Every call has its own
+//     buffers, so calls on different streams may overlap.
+//
+// Why runs: at R = 1 an entry costs a block ~8.6 us in the batch; its
+// ticket (fence, atomic, the barriers around them) with the view's sum
+// that the last ticket starts are half of that, its slot-pack reload and
+// profile rows' round trip 7%, and the slot walk, its barriers and
+// partial stores the rest (PERF.md, section 6). A run pays the ticket, the pack and its list
+// records once, and the prefetch hides the rows' round trip behind the
+// previous entry's walk. What bounds a run is then the slot walk, an
+// entry at a time; and, in a call with few entries a block, the run's
+// first round trips and the view's sum at the end.
 //
 // The tile kernel is held to 3 resident blocks per SM (80 registers): one
 // block (141 registers) was 1.9x slower live, 2 were 1.2x slower and 4
@@ -55,6 +74,8 @@ constexpr int THREADS = TILE * TILE;  // one thread per pixel of the tile
 constexpr int WARPS = THREADS / 32;
 constexpr int MIN_BLOCKS = 3;         // resident tile-kernel blocks per SM
 constexpr int LIST_THREADS = 1024;    // live_tiles: one block per view
+constexpr int MAX_RUN = 64;           // longest run of list entries a block takes
+constexpr int STAGES = 2;             // entries whose profile rows are staged at once
 constexpr int GT_BIT = 32;            // mask bit GT_BIT + i: slot i's GT support
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -100,9 +121,29 @@ __device__ __forceinline__ float warp_sum6(const float (&g)[N_GRAD],
   return s;
 }
 
+// 4 bytes from global `src` to shared `dst` without passing through
+// registers; with `fill` false nothing is read and dst gets 0.
+__device__ __forceinline__ void copy_async(float* dst, const float* src,
+                                           bool fill) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(fill ? 4 : 0));
+}
+
+__device__ __forceinline__ void copy_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Waits until at most `PENDING` of this thread's committed groups are
+// still in flight.
+template <int PENDING>
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
+}
+
 // One block per view: the view's live tiles in ascending tile order,
 // live_idx[v][0, live_n[v]) with their slot masks live_mask[v][...], and
-// the view's counter of finished entries view_done[v] = 0. A view with no
+// the view's counter of finished runs view_done[v] = 0. A view with no
 // live tile gets S = C = dg = 0.
 __global__ void __launch_bounds__(LIST_THREADS)
     live_tiles(const float* __restrict__ pack, int N, int n_tx, int n_ty,
@@ -274,16 +315,66 @@ __device__ void reduce_view(int v, int L, int N, int n_tx, int n_ty,
   }
 }
 
+// Views [w0, w0 + THREADS) of the call: s_n[t] the list length of view
+// w0 + t (0 past V), s_cum[t] the runs of R entries of views w0 .. w0 + t.
+// Returns the window's runs. Block-wide; every thread calls it.
+__device__ int load_window(int w0, int V, int R, const int* live_n, int* s_n,
+                           int* s_cum, int* s_wsum) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int n = w0 + t < V ? live_n[w0 + t] : 0;
+  int incl = (n + R - 1) / R;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl += y;
+  }
+  __syncthreads();  // the previous window is read
+  if (lane == 31) s_wsum[warp] = incl;
+  __syncthreads();
+  for (int w = 0; w < warp; ++w) incl += s_wsum[w];
+  s_n[t] = n;
+  s_cum[t] = incl;
+  __syncthreads();
+  return s_cum[THREADS - 1];
+}
+
+// The profile rows of run entry j (list record s_tile[j], s_mask[j]) into
+// ring buffer `stage`: for each slot the entry flags, its 16 rows of p1
+// and 16 columns of p2 (0 past the grid's edge).
+template <int NS>
+__device__ __forceinline__ void stage_rows(int j, int stage, int N, int H,
+                                           int W, int n_tx, const int* s_tile,
+                                           const Mask* s_mask,
+                                           const float* p1v, const float* p2v,
+                                           float (*s_p1)[NS * TILE],
+                                           float (*s_p2)[NS * TILE]) {
+  const int tile = s_tile[j];
+  const Mask mask = s_mask[j];
+  const unsigned work = (unsigned)(mask | (mask >> GT_BIT));
+  const int by = tile / n_tx, bx = tile - by * n_tx;
+  for (int q = threadIdx.x; q < N * TILE; q += THREADS) {
+    const int i = q / TILE, o = q % TILE;
+    if ((work >> i) & 1u) {
+      const int yy = by * TILE + o, xx = bx * TILE + o;
+      copy_async(&s_p1[stage][q], p1v + (size_t)i * H + min(yy, H - 1),
+                 yy < H);
+      copy_async(&s_p2[stage][q], p2v + (size_t)i * W + min(xx, W - 1),
+                 xx < W);
+    }
+  }
+}
+
 // part_s, part_c: (V, n_tiles), row j of view v is the view's list entry
 // j; part_dg: (V, N, n_tiles, 6), position p of slot i is the tile at
-// (x0 + p % w, y0 + p / w) of the slot's rect_span.
+// (x0 + p % w, y0 + p / w) of the slot's rect_span. Run k of the call is
+// the k-th run in view order; block b takes runs b, b + gridDim.x, ...
 template <bool WITH_GRAD, bool L1, int NS>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     raster_loss_live(const float* __restrict__ pack,
                      const float* __restrict__ p1,
                      const float* __restrict__ p2,
                      const float* __restrict__ img, int V, int N, int H, int W,
-                     int n_tx, const int* __restrict__ live_idx,
+                     int n_tx, int R, const int* __restrict__ live_idx,
                      const Mask* __restrict__ live_mask,
                      const int* __restrict__ live_n,
                      unsigned* __restrict__ view_done,
@@ -292,7 +383,11 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
                      float* __restrict__ S, int* __restrict__ C,
                      float* __restrict__ dg) {
   __shared__ float s_pack[NS * PACK];
-  __shared__ float s_p1[NS * TILE], s_p2[NS * TILE];  // the tile's rows, columns
+  // the ring of entries' tile rows and columns
+  __shared__ float s_p1[STAGES][NS * TILE], s_p2[STAGES][NS * TILE];
+  __shared__ int s_tile[MAX_RUN];
+  __shared__ Mask s_mask[MAX_RUN];
+  __shared__ int s_n[THREADS], s_cum[THREADS], s_wsum[WARPS];
   __shared__ float s_S[WARPS];
   __shared__ int s_C[WARPS];
   __shared__ float s_dg[WITH_GRAD ? WARPS * NS * N_GRAD : 1];
@@ -305,166 +400,198 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   const int tx = threadIdx.x % TILE, ty = threadIdx.x / TILE;
   const int comp = sum6_component(lane);
 
-  int v = 0, base = 0;  // the view of entry k, and the entries before it
+  // the window of views [w0, w0 + THREADS) and the runs before it
+  int w0 = -THREADS, rbase = 0, wruns = 0;
   for (int k = blockIdx.x;; k += gridDim.x) {
-    while (v < V && k - base >= live_n[v]) base += live_n[v++];
-    if (v == V) break;
-    const size_t e = (size_t)v * n_tiles + (k - base);
-    const int tile = live_idx[e];
-    const Mask mask = live_mask[e];
-    const unsigned work = (unsigned)(mask | (mask >> GT_BIT));
-    const int bx = tile % n_tx, by = tile / n_tx;
+    while (k - rbase >= wruns) {
+      if (w0 + THREADS >= V) return;
+      rbase += wruns;
+      w0 += THREADS;
+      wruns = load_window(w0, V, R, live_n, s_n, s_cum, s_wsum);
+    }
+    // the run's view: the views of the window whose runs all come before
+    // it (the barrier also ends the previous run's use of shared memory)
+    const int rr = k - rbase;
+    const int off = __syncthreads_count(s_cum[threadIdx.x] <= rr);
+    const int v = w0 + off, L = s_n[off];
+    const int j0 = (rr - (off > 0 ? s_cum[off - 1] : 0)) * R;
+    const int n_run = min(R, L - j0);
+    const size_t e0 = (size_t)v * n_tiles + j0;
     const float* p1v = p1 + (size_t)v * N * H;
     const float* p2v = p2 + (size_t)v * N * W;
 
-    __syncthreads();  // the previous entry is done with shared memory
     const float* pk = pack + (size_t)v * N * PACK;
     for (int q = threadIdx.x; q < N * PACK; q += THREADS) s_pack[q] = pk[q];
-    for (int q = threadIdx.x; q < N * TILE; q += THREADS) {
-      const int i = q / TILE, o = q % TILE;
-      if ((work >> i) & 1u) {
-        const int yy = by * TILE + o, xx = bx * TILE + o;
-        s_p1[q] = yy < H ? p1v[(size_t)i * H + yy] : 0.f;
-        s_p2[q] = xx < W ? p2v[(size_t)i * W + xx] : 0.f;
-      }
+    if (threadIdx.x < n_run) {
+      s_tile[threadIdx.x] = live_idx[e0 + threadIdx.x];
+      s_mask[threadIdx.x] = live_mask[e0 + threadIdx.x];
     }
+    const float img_w = img[2 * v], img_h = img[2 * v + 1];
     __syncthreads();
-
-    const int x = bx * TILE + tx, y = by * TILE + ty;
-    const bool in_grid = x < W && y < H;
-    const float xf = (float)x, yf = (float)y;
-    const bool in_img = in_grid && xf < img[2 * v] && yf < img[2 * v + 1];
-
-    // pass 1: front to back
-    float T = 1.f;  // T == 0 encodes the T_MIN early-out
-    float S_acc = 0.f;
-    int C_acc = 0;
-    // per render slot: T before it and its live-masked alpha
-    constexpr int NA = WITH_GRAD ? NS : 1;
-    float Tv[NA], Av[NA];
 #pragma unroll
-    for (int i = 0; i < NS; ++i) {
-      if (i >= N) break;
-      const bool rend = (mask >> i) & 1ull;
-      if (!rend && !((mask >> (GT_BIT + i)) & 1ull)) continue;
-      const float* s = &s_pack[i * PACK];
-      const float gt =
-          in_grid ? s_p1[i * TILE + ty] * s_p2[i * TILE + tx] + s[IDX_B] : 0.f;
-      if (rend) {
-        const SlotEval ev = slot_alpha(s, xf, yf);
-        const bool gate = ev.power <= 0.f && ev.alpha >= ALPHA_MIN;
-        const float a_i = gate ? ev.alpha : 0.f;
-        const float test = T * (1.f - a_i);
-        const bool ge = test >= T_MIN;
-        const bool live = gate && ge;
-        const float contrib = live ? a_i * T : 0.f;
-        const float r = fminf(fmaxf(contrib, 0.f), 1.f);
-        const bool m = (gt > 0.f || r > 0.f) && in_img;
-        if (m) {
-          S_acc += err_of<L1>(r - gt);
+    for (int j = 0; j < STAGES - 1; ++j) {
+      if (j < n_run)
+        stage_rows<NS>(j, j, N, H, W, n_tx, s_tile, s_mask, p1v, p2v, s_p1,
+                       s_p2);
+      copy_async_commit();
+    }
+
+    for (int j = 0; j < n_run; ++j) {
+      const int jn = j + STAGES - 1;
+      if (jn < n_run)
+        stage_rows<NS>(jn, jn % STAGES, N, H, W, n_tx, s_tile, s_mask, p1v,
+                       p2v, s_p1, s_p2);
+      copy_async_commit();
+      copy_async_wait<STAGES - 1>();
+      // entry j's rows have arrived from every thread's copies, and the
+      // previous entry's partials are written
+      __syncthreads();
+      const float* q1 = s_p1[j % STAGES];
+      const float* q2 = s_p2[j % STAGES];
+      const size_t e = e0 + j;
+      const int tile = s_tile[j];
+      const Mask mask = s_mask[j];
+      const int by = tile / n_tx, bx = tile - by * n_tx;
+
+      const int x = bx * TILE + tx, y = by * TILE + ty;
+      const bool in_grid = x < W && y < H;
+      const float xf = (float)x, yf = (float)y;
+      const bool in_img = in_grid && xf < img_w && yf < img_h;
+
+      // pass 1: front to back
+      float T = 1.f;  // T == 0 encodes the T_MIN early-out
+      float S_acc = 0.f;
+      int C_acc = 0;
+      // per render slot: T before it and its live-masked alpha
+      constexpr int NA = WITH_GRAD ? NS : 1;
+      float Tv[NA], Av[NA];
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        if (i >= N) break;
+        const bool rend = (mask >> i) & 1ull;
+        if (!rend && !((mask >> (GT_BIT + i)) & 1ull)) continue;
+        const float* s = &s_pack[i * PACK];
+        const float gt =
+            in_grid ? q1[i * TILE + ty] * q2[i * TILE + tx] + s[IDX_B] : 0.f;
+        if (rend) {
+          const SlotEval ev = slot_alpha(s, xf, yf);
+          const bool gate = ev.power <= 0.f && ev.alpha >= ALPHA_MIN;
+          const float a_i = gate ? ev.alpha : 0.f;
+          const float test = T * (1.f - a_i);
+          const bool ge = test >= T_MIN;
+          const bool live = gate && ge;
+          const float contrib = live ? a_i * T : 0.f;
+          const float r = fminf(fmaxf(contrib, 0.f), 1.f);
+          const bool m = (gt > 0.f || r > 0.f) && in_img;
+          if (m) {
+            S_acc += err_of<L1>(r - gt);
+            C_acc += 1;
+          }
+          if constexpr (WITH_GRAD) {
+            Tv[i] = T;
+            Av[i] = live ? a_i : 0.f;
+          }
+          if (gate) T = ge ? test : 0.f;
+        } else if (gt > 0.f && in_img) {  // GT-only terms of a slot off this tile
+          S_acc += err_of<L1>(gt);
           C_acc += 1;
         }
-        if constexpr (WITH_GRAD) {
-          Tv[i] = T;
-          Av[i] = live ? a_i : 0.f;
+      }
+      {
+        const float ws = warp_sum(S_acc);
+        const int wc = warp_sum(C_acc);
+        if (lane == 0) {
+          s_S[warp] = ws;
+          s_C[warp] = wc;
         }
-        if (gate) T = ge ? test : 0.f;
-      } else if (gt > 0.f && in_img) {  // GT-only terms of a slot off this tile
-        S_acc += err_of<L1>(gt);
-        C_acc += 1;
       }
-    }
-    {
-      const float ws = warp_sum(S_acc);
-      const int wc = warp_sum(C_acc);
-      if (lane == 0) {
-        s_S[warp] = ws;
-        s_C[warp] = wc;
-      }
-    }
 
-    if constexpr (WITH_GRAD) {
-      // pass 2: back to front; sfx = sum over later slots of alpha*T*ghat
-      float sfx = 0.f;
+      if constexpr (WITH_GRAD) {
+        // pass 2: back to front; sfx = sum over later slots of alpha*T*ghat
+        float sfx = 0.f;
 #pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const int i = NS - 1 - j;
-        if (i >= N || !((mask >> i) & 1ull)) continue;
-        const float* s = &s_pack[i * PACK];
-        const float T_i = Tv[i];
-        // pass 2 recomputes gt, the mask and slot_alpha (keeping them from
-        // pass 1 costs registers and was no faster, PERF.md section 6)
-        const float a_i = Av[i];
-        const bool live = a_i > 0.f;
-        const float r = fminf(fmaxf(a_i * T_i, 0.f), 1.f);
-        const float gt =
-            in_grid ? s_p1[i * TILE + ty] * s_p2[i * TILE + tx] + s[IDX_B]
-                    : 0.f;
-        const bool m = (gt > 0.f || r > 0.f) && in_img;
-        const float ghat = (m && live) ? derr_of<L1>(r - gt) : 0.f;
-        const SlotEval ev = slot_alpha(s, xf, yf);
-        const float E = ev.E, oE = s[IDX_OPA] * E, dx = ev.dx, dy = ev.dy;
-        const float dalpha = live ? T_i * ghat - sfx / (1.f - a_i) : 0.f;
-        // the reference chains through the alpha clamp unconditionally:
-        // dalpha/dpower is the unclamped opa * E
-        const float dpower = dalpha * oE;
-        float g[N_GRAD];
-        g[0] = dpower * (-s[IDX_CA] * dx - s[IDX_CB] * dy);
-        g[1] = dpower * (-s[IDX_CC] * dy - s[IDX_CB] * dx);
-        g[2] = dpower * (-0.5f * dx * dx);
-        g[3] = dpower * (-dx * dy);
-        g[4] = dpower * (-0.5f * dy * dy);
-        g[5] = dalpha * E;
-        const float w = warp_sum6(g, lane);
-        if ((lane & 3) == 0 && comp >= 0)
-          s_dg[(warp * NS + i) * N_GRAD + comp] = w;
-        sfx = sfx + a_i * T_i * ghat;
+        for (int jj = 0; jj < NS; ++jj) {
+          const int i = NS - 1 - jj;
+          if (i >= N || !((mask >> i) & 1ull)) continue;
+          const float* s = &s_pack[i * PACK];
+          const float T_i = Tv[i];
+          // pass 2 recomputes gt, the mask and slot_alpha (keeping them
+          // from pass 1 costs registers and was no faster, PERF.md
+          // section 6)
+          const float a_i = Av[i];
+          const bool live = a_i > 0.f;
+          const float r = fminf(fmaxf(a_i * T_i, 0.f), 1.f);
+          const float gt =
+              in_grid ? q1[i * TILE + ty] * q2[i * TILE + tx] + s[IDX_B]
+                      : 0.f;
+          const bool m = (gt > 0.f || r > 0.f) && in_img;
+          const float ghat = (m && live) ? derr_of<L1>(r - gt) : 0.f;
+          const SlotEval ev = slot_alpha(s, xf, yf);
+          const float E = ev.E, oE = s[IDX_OPA] * E, dx = ev.dx, dy = ev.dy;
+          const float dalpha = live ? T_i * ghat - sfx / (1.f - a_i) : 0.f;
+          // the reference chains through the alpha clamp unconditionally:
+          // dalpha/dpower is the unclamped opa * E
+          const float dpower = dalpha * oE;
+          float g[N_GRAD];
+          g[0] = dpower * (-s[IDX_CA] * dx - s[IDX_CB] * dy);
+          g[1] = dpower * (-s[IDX_CC] * dy - s[IDX_CB] * dx);
+          g[2] = dpower * (-0.5f * dx * dx);
+          g[3] = dpower * (-dx * dy);
+          g[4] = dpower * (-0.5f * dy * dy);
+          g[5] = dalpha * E;
+          const float w = warp_sum6(g, lane);
+          if ((lane & 3) == 0 && comp >= 0)
+            s_dg[(warp * NS + i) * N_GRAD + comp] = w;
+          sfx = sfx + a_i * T_i * ghat;
+        }
       }
-    }
-    __syncthreads();
+      __syncthreads();
 
-    // the entry's partials: S and C at its list position, each render
-    // slot's six dg components at the tile's position in the slot's rect
-    if (threadIdx.x == 0) {
-      float Sb = 0.f;
-      int Cb = 0;
-      for (int w = 0; w < WARPS; ++w) {
-        Sb += s_S[w];
-        Cb += s_C[w];
+      // the entry's partials: S and C at its list position, each render
+      // slot's six dg components at the tile's position in the slot's rect
+      if (threadIdx.x == 0) {
+        float Sb = 0.f;
+        int Cb = 0;
+        for (int w = 0; w < WARPS; ++w) {
+          Sb += s_S[w];
+          Cb += s_C[w];
+        }
+        part_s[e] = Sb;
+        part_c[e] = Cb;
       }
-      part_s[e] = Sb;
-      part_c[e] = Cb;
-    }
-    if constexpr (WITH_GRAD) {
-      for (int q = threadIdx.x; q < N * N_GRAD; q += THREADS) {
-        const int i = q / N_GRAD, c = q % N_GRAD;
-        if (!((mask >> i) & 1ull)) continue;
-        const RectSpan rs = rect_span(&s_pack[i * PACK], n_tx, n_ty);
-        const int pos = (by - rs.y0) * rs.w + (bx - rs.x0);
-        float acc = 0.f;
-        for (int w = 0; w < WARPS; ++w) acc += s_dg[(w * NS + i) * N_GRAD + c];
-        part_dg[(((size_t)v * N + i) * n_tiles + pos) * N_GRAD + c] = acc;
+      if constexpr (WITH_GRAD) {
+        for (int q = threadIdx.x; q < N * N_GRAD; q += THREADS) {
+          const int i = q / N_GRAD, c = q % N_GRAD;
+          if (!((mask >> i) & 1ull)) continue;
+          const RectSpan rs = rect_span(&s_pack[i * PACK], n_tx, n_ty);
+          const int pos = (by - rs.y0) * rs.w + (bx - rs.x0);
+          float acc = 0.f;
+          for (int w = 0; w < WARPS; ++w)
+            acc += s_dg[(w * NS + i) * N_GRAD + c];
+          part_dg[(((size_t)v * N + i) * n_tiles + pos) * N_GRAD + c] = acc;
+        }
       }
     }
 
-    // the block that finishes the view's last entry sums the view
+    // one ticket a run: the block that finishes the view's last run sums
+    // the view
     __threadfence();
     __syncthreads();
     if (threadIdx.x == 0)
-      s_last = atomicAdd(&view_done[v], 1u) + 1u == (unsigned)live_n[v];
+      s_last = atomicAdd(&view_done[v], 1u) + 1u == (unsigned)((L + R - 1) / R);
     __syncthreads();
     if (s_last) {
       __threadfence();
-      reduce_view<WITH_GRAD>(v, live_n[v], N, n_tx, n_ty, s_pack, part_s,
-                             part_c, part_dg, S, C, dg, s_rf, s_rc);
+      reduce_view<WITH_GRAD>(v, L, N, n_tx, n_ty, s_pack, part_s, part_c,
+                             part_dg, S, C, dg, s_rf, s_rc);
     }
   }
 }
 
 typedef void (*TileKernel)(const float*, const float*, const float*,
-                           const float*, int, int, int, int, int, const int*,
-                           const Mask*, const int*, unsigned*, float*, int*,
-                           float*, float*, int*, float*);
+                           const float*, int, int, int, int, int, int,
+                           const int*, const Mask*, const int*, unsigned*,
+                           float*, int*, float*, float*, int*, float*);
 
 // K1 sizes its per-slot registers by a slot bound from N; K2 keeps none.
 int slot_bound(int N, bool with_grad) {
@@ -511,20 +638,22 @@ int persistent_grid(TileKernel k, int slot) {
 // view_done (V uint32), part_s (V * n_tiles float32), part_c (V * n_tiles
 // int32), with with_grad part_dg (V * N * n_tiles * 6 float32), S (V), C
 // (V) and, with with_grad, dg (V * N * 6), with n_tiles the 16x16 tiles
-// of the H x W grid. Two launches on `stream`, no host synchronisation;
-// the call's state lives in these buffers alone. Returns the cudaError_t
-// of the launches.
+// of the H x W grid. `run` is the tile kernel's run length R, 1 to
+// MAX_RUN; the results do not depend on it. Two launches on `stream`, no
+// host synchronisation; the call's state lives in these buffers alone.
+// Returns the cudaError_t of the launches.
 extern "C" int skelsplat_raster_loss(const float* pack, const float* p1,
                                      const float* p2, const float* img, int V,
                                      int N, int H, int W, int l1,
-                                     int with_grad, int* live_idx,
+                                     int with_grad, int run, int* live_idx,
                                      unsigned long long* live_mask,
                                      int* live_n, unsigned* view_done,
                                      float* part_s, int* part_c,
                                      float* part_dg, float* S, int* C,
                                      float* dg, void* stream_ptr) {
   using namespace skelsplat;
-  if (V < 1 || N < 1 || N > MAX_SLOTS || H < 1 || W < 1)
+  if (V < 1 || N < 1 || N > MAX_SLOTS || H < 1 || W < 1 || run < 1 ||
+      run > MAX_RUN)
     return (int)cudaErrorInvalidValue;
   const int n_tx = (W + TILE - 1) / TILE, n_ty = (H + TILE - 1) / TILE;
   const size_t axis_bytes = (size_t)(n_tx + n_ty) * sizeof(Mask);
@@ -538,10 +667,11 @@ extern "C" int skelsplat_raster_loss(const float* pack, const float* p1,
       S, C, dg);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long entries = (long long)V * n_tx * n_ty;
-  const int grid = (int)(entries < persistent_grid(k, slot)
-                             ? entries : persistent_grid(k, slot));
-  k<<<grid, THREADS, 0, stream>>>(pack, p1, p2, img, V, N, H, W, n_tx,
+  // at most this many runs: every tile of every view live
+  const long long runs = (long long)V * ((n_tx * n_ty + run - 1) / run);
+  const int grid = (int)(runs < persistent_grid(k, slot)
+                             ? runs : persistent_grid(k, slot));
+  k<<<grid, THREADS, 0, stream>>>(pack, p1, p2, img, V, N, H, W, n_tx, run,
                                   live_idx, live_mask, live_n, view_done,
                                   part_s, part_c, part_dg, S, C, dg);
   return (int)cudaGetLastError();

@@ -44,11 +44,13 @@ The kernel wrappers (K1's, kernels A and B of ``ops/cuda_preprocess.py``
 and kernel C of ``ops/compose_adam.py``) count their launches in
 ``cuda_raster.launches`` where they launch. During a capture they launch
 nothing, so the graph undoes the count that capture made, keeps it as the
-launches the graph holds, and adds them on every replay.
+launches the graph holds, and adds them on every replay; K1's calls by run
+length (the ``tracing`` counter ``k1_run_length``) likewise.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import gc
 import time
@@ -102,6 +104,7 @@ class Program:
         self.graph = None
         self.outputs = None
         self.launches = {}          # kernel launches one replay makes
+        self.run_lengths = {}       # its K1 calls by run length
         self.capture_seconds = None
         self.instantiate_seconds = None
         self.nodes = None
@@ -118,6 +121,8 @@ class Program:
         tracing.count("graph_launches", self.kind)
         for name, n in self.launches.items():
             cuda_raster.launches[name] += n
+        for label, n in self.run_lengths.items():
+            tracing.count("k1_run_length", label, n)
         return self.outputs
 
     def _warm_call(self):
@@ -132,6 +137,7 @@ class Program:
 
     def _capture(self):
         before = dict(cuda_raster.launches)
+        runs_before = collections.Counter(tracing.counters["k1_run_length"])
         # the capture's own time: the queued work drained and the cache
         # emptied first (torch.cuda.graph empties it on entry)
         torch.cuda.synchronize()
@@ -162,6 +168,11 @@ class Program:
         self.launches = {k: cuda_raster.launches[k] - before[k]
                          for k in before}
         cuda_raster.launches.update(before)
+        # K1's run lengths likewise: credited per replay, not at capture
+        self.run_lengths = dict(tracing.counters["k1_run_length"]
+                                - runs_before)
+        for label, n in self.run_lengths.items():
+            tracing.count("k1_run_length", label, -n)
         self.nodes = graph_nodes(graph)
         t0 = time.perf_counter()
         graph.instantiate()
@@ -216,6 +227,7 @@ class StepGraph:
     instantiate_seconds = property(
         lambda self: self.step_program.instantiate_seconds)
     launches = property(lambda self: self.step_program.launches)
+    run_lengths = property(lambda self: self.step_program.run_lengths)
 
     def _grow(self, group_inputs):
         """Group buffers that hold ``group_inputs``' group; the prepare and

@@ -126,7 +126,7 @@ def load_library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             vp, i32 = ctypes.c_void_p, ctypes.c_int
             lib.skelsplat_raster_loss.argtypes = (
-                [vp] * 4 + [i32] * 6 + [vp] * 11)
+                [vp] * 4 + [i32] * 7 + [vp] * 11)
             lib.skelsplat_raster_loss.restype = i32
             lib.skelsplat_raster_loss_occupancy.argtypes = [i32] * 3 + [vp]
             lib.skelsplat_raster_loss_occupancy.restype = i32

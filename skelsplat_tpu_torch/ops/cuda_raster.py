@@ -15,8 +15,10 @@ slot and makes ONE launch covering every view:
 
 On the card a call is two launches: the list of each view's live tiles
 (tiles some slot's rect or GT support meets, ``live_tiles_plain`` is its
-plain version), then a persistent grid over the lists that also sums each
-view's partials; the live-tile count never reaches the host.
+plain version), then a persistent grid over runs of R consecutive entries
+of one view's list that also sums each view's partials; the live-tile
+count never reaches the host. ``run_length`` picks R from the call's
+shape; the results are bitwise the same for every R.
 
 Each wrapper launches the kernel for CUDA tensors (counting the launch in
 ``launches``) and runs its plain PyTorch version, the same two passes over
@@ -30,6 +32,7 @@ through autograd of the preprocess and the depth-order gather.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -47,6 +50,7 @@ PACK = 16
 N_GRAD = 6           # px, py, conic a, b, c, opa
 MAX_SLOTS = 32       # the kernel keeps per-slot values in registers and
                      # a tile's slots in one 64-bit mask
+MAX_RUN = 64         # the tile kernel's longest run of list entries
 IDX_PX, IDX_PY, IDX_CA, IDX_CB, IDX_CC, IDX_OPA = range(6)
 IDX_RX0, IDX_RY0, IDX_RX1, IDX_RY1, IDX_B = 6, 7, 8, 9, 10
 IDX_GY0, IDX_GY1, IDX_GX0, IDX_GX1 = 11, 12, 13, 14
@@ -296,18 +300,64 @@ def _check_inputs(pack, p1, p2, img):
         raise ValueError(f"img must be ({V}, 2), got {tuple(img.shape)}")
 
 
-def _launch(pack, p1, p2, img, l1: bool, with_grad: bool):
+def run_length(V: int, n_tiles: int, grid: int) -> int:
+    """The tile kernel's run length R for a call over ``V`` views of
+    ``n_tiles`` tiles each on a persistent grid of ``grid`` blocks.
+
+    A run pays its view's slot records, its list records and its ticket
+    once, so long runs suit a call whose blocks each meet many live tiles;
+    but a view's runs are the call's units of parallel work, so a call
+    with few live tiles a block wants short ones, or blocks sit idle. The
+    host never learns the live count, so R follows the tiles a block
+    covers, V · n_tiles / grid, by thresholds measured on an H100 (PERF.md
+    section 6); the results do not depend on R, only the time."""
+    per_block = V * n_tiles / grid
+    R = next(R for bound, R in RUN_TABLE if per_block < bound)
+    return min(R, n_tiles)    # no list is longer than n_tiles
+
+
+# (tiles a block covers below which, R), measured at the benchmark's
+# calls on the H100's 396 resident blocks: 4 × 1002×1000 (40 tiles a
+# block, ~1.7 live), 4 × 1920×1080 (82, ~5.5 live) and 512 × 1920×1080
+# (10,550, ~800 live). The chains take the shortest runs that still give
+# each block at most one (a second round of runs costs more than a longer
+# run); the batch's runs stop gaining past ~48 entries.
+RUN_TABLE = ((60, 2), (1000, 7), (float("inf"), 48))
+
+
+@functools.lru_cache(maxsize=None)
+def persistent_grid(device_index: int, with_grad: bool, l1: bool,
+                    n_slots: int) -> int:
+    """Resident blocks of the tile kernel a call with ``n_slots`` slots
+    launches, on the whole card: the grid ``run_length`` divides by."""
     from skelsplat_tpu_torch.ops import _build
 
+    per_sm = _build.occupancy(with_grad, l1, _build.slot_bound(
+        n_slots, with_grad))["blocks_per_sm"]
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return sms * per_sm
+
+
+def _launch(pack, p1, p2, img, l1: bool, with_grad: bool,
+            run: int | None = None):
+    """One call of the kernel; ``run`` forces the tile kernel's run length
+    (default ``run_length`` of the call's shape)."""
+    from skelsplat_tpu_torch.ops import _build
+
+    if run is not None and not 1 <= run <= MAX_RUN:
+        raise ValueError(f"run length {run} outside 1..{MAX_RUN}")
     lib = _build.load_library()
     V, N, _ = pack.shape
     H, W = p1.shape[-1], p2.shape[-1]
     n_tiles = _build.n_tiles(W, H)
     dev = pack.device
+    if run is None:
+        run = run_length(V, n_tiles, persistent_grid(dev.index, with_grad,
+                                                     l1, N))
     live_idx = torch.empty((V, n_tiles), dtype=torch.int32, device=dev)
     live_mask = torch.empty((V, n_tiles), dtype=torch.int64, device=dev)
-    # each view's live count, then its counter of finished list entries
-    # (the tile kernel's last-block ticket, zeroed by the list kernel)
+    # each view's live count, then its counter of finished runs (the tile
+    # kernel's last-block ticket, zeroed by the list kernel)
     counts = torch.empty(2 * V, dtype=torch.int32, device=dev)
     live_n, view_done = counts[:V], counts[V:]
     # partials sized for every tile: the host never learns how many are live
@@ -326,7 +376,7 @@ def _launch(pack, p1, p2, img, l1: bool, with_grad: bool):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.skelsplat_raster_loss(
             pack.data_ptr(), p1.data_ptr(), p2.data_ptr(), img.data_ptr(),
-            V, N, H, W, int(l1), int(with_grad), live_idx.data_ptr(),
+            V, N, H, W, int(l1), int(with_grad), run, live_idx.data_ptr(),
             live_mask.data_ptr(), live_n.data_ptr(), view_done.data_ptr(),
             part_s.data_ptr(),
             part_c.data_ptr(), part_dg.data_ptr(), S.data_ptr(),
@@ -334,6 +384,8 @@ def _launch(pack, p1, p2, img, l1: bool, with_grad: bool):
     if rc != 0:
         raise RuntimeError(f"raster_loss kernel launch failed: "
                            f"{_build.error_string(rc)} (cudaError {rc})")
+    if with_grad:
+        tracing.count("k1_run_length", str(run))
     return S, C, (dg if with_grad else None), (live_idx, live_mask, live_n)
 
 

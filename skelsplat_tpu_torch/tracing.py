@@ -29,8 +29,9 @@ ran for minutes (CUDA's float32 milliseconds).
 **Counters**, incremented where the work happens: ``graph_launches`` by
 program (prepare, step, collect), ``host_syncs`` by call site (every
 synchronize, and every host copy of a device tensor, that the program
-makes itself), ``captures`` by program and ``input_bytes`` (the packed
-host inputs). A unit keeps the counts made while it was open, so
+makes itself), ``captures`` by program, ``input_bytes`` (the packed
+host inputs) and ``k1_run_length``, K1's calls by the tile kernel's run
+length (``ops/cuda_raster.py::run_length``). A unit keeps the counts made while it was open, so
 ``window`` counts what the units of an interval did.
 
 **Detail** (off by default; ``enable(detail=True)``, ``enable(False)``):
@@ -57,7 +58,8 @@ RING = 1 << 17
 UNITS = ("skelsplat.scene", "skelsplat.chain", "skelsplat.batch")
 LAUNCH = "skelsplat.launch"
 REPLAY = "skelsplat.replay."
-COUNTERS = ("graph_launches", "host_syncs", "captures", "input_bytes")
+COUNTERS = ("graph_launches", "host_syncs", "captures", "input_bytes",
+            "k1_run_length")
 CURRENT = -1    # a device interval on the current CUDA device
 
 _now = time.perf_counter_ns

@@ -85,6 +85,79 @@ def test_kernels_match_plain_versions(packed, l1):
     assert ((dg[live_views] - dgp[live_views]).abs() / scale).max().item() <= 1e-5
 
 
+# K1 for every run length: (W, H, joints, widths, short lists) at each
+# cell's frame size and a small ragged 19-joint rig; with short lists,
+# view 0 keeps one slot (a list shorter than the longest runs) and view 1
+# none
+RUN_CASES = {"h36m": (1002, 1000, 17, None, False),
+             "panoptic": (1920, 1080, 19, None, False),
+             "n19_ragged": (W, H, 19, WIDTHS, False),
+             "short_lists": (1002, 1000, 17, None, True)}
+RUNS = (1, 2, 4, 8, 32, cuda_raster.MAX_RUN)
+
+
+def _same(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(RUN_CASES))
+def test_k1_is_bitwise_across_run_lengths(card, case):
+    """K1's S, C and dg (and K2's S and C) are the same bits for every run
+    length R: each list entry's partials and each view's sum keep their
+    order whatever run the entry falls in. Lists here end in a part run
+    (their lengths are not multiples of R)."""
+    from skelsplat_tpu_torch.tools import kernel_probe
+
+    w, h, n, widths, short = RUN_CASES[case]
+    pack, p1s, p2s, img = kernel_probe.probe_inputs(
+        w, h, n_joints=n, widths=widths, perturb=True, device="cuda")
+    if short:
+        pack, p1s = kernel_probe.keep_slots(pack, p1s, 1, views=[0])
+        pack, p1s = kernel_probe.keep_slots(pack, p1s, 0, views=[1])
+    outs = {R: cuda_raster._launch(pack, p1s, p2s, img, False, True, run=R)
+            for R in RUNS}
+    k2 = {R: cuda_raster._launch(pack, p1s, p2s, img, False, False, run=R)
+          for R in (1, 3, 16)}
+    default = cuda_raster.raster_loss_grad(pack, p1s, p2s, img, False)
+    torch.cuda.synchronize()
+    ref = outs[1][:3]
+    live_n = outs[1][3][2].tolist()
+    assert any(L % R for L in live_n for R in RUNS if L > R), live_n
+    for R, out in outs.items():
+        assert _same(out[:3], ref), R
+    assert _same(default, ref)
+    for R, out in k2.items():
+        assert _same(out[:2], ref[:2]), R
+    if short:
+        assert 0 < live_n[0] < 32 and live_n[1] == 0, live_n
+        assert float(ref[0][1]) == 0.0 and int(ref[1][1]) == 0
+        assert float(ref[2][1].abs().max()) == 0.0
+    else:
+        assert min(live_n) > 0, live_n
+
+
+@pytest.mark.cuda
+def test_k1_batch_is_bitwise_each_scenes_own_call(card):
+    """One K1 launch over 128 Panoptic scenes' 512 views (the batch's long
+    runs) gives every scene the bits of its own 4-view launch (the
+    chain's short runs)."""
+    from skelsplat_tpu_torch.tools import kernel_probe
+
+    parts = [kernel_probe.probe_inputs(1920, 1080, n_joints=19, seed=s,
+                                       device="cuda") for s in range(128)]
+    batch = tuple(torch.cat(xs).contiguous() for xs in zip(*parts))
+    grid = cuda_raster.persistent_grid(torch.cuda.current_device(), True,
+                                       False, 19)
+    assert cuda_raster.run_length(512, 120 * 68, grid) \
+        > cuda_raster.run_length(4, 120 * 68, grid)
+    S, C, dg = cuda_raster.raster_loss_grad(*batch, False)
+    for s, x in enumerate(parts):
+        own = cuda_raster.raster_loss_grad(*x, False)
+        assert _same(own, (S[4 * s:4 * s + 4], C[4 * s:4 * s + 4],
+                           dg[4 * s:4 * s + 4])), s
+
+
 # kernels A and B at each cell's shapes (scene type, scenes, W, H) and
 # small ones: antialiasing, a culled Gaussian, one past the EWA clamp, an
 # infinite opacity logit
@@ -803,6 +876,9 @@ def test_replays_make_no_host_sync_and_count_k1(card):
     assert graph.launches == {"raster_loss_grad": 1, "raster_loss": 0,
                               "preprocess_pack": 1, "preprocess_grad": 1,
                               "compose_adam": 1}
+    R = cr.run_length(4, -(-W // 16) * -(-H // 16), cr.persistent_grid(
+        torch.cuda.current_device(), True, False, 17))
+    assert graph.run_lengths == {str(R): 1}
     graph.state.step.zero_()     # 20 more steps from the first
     torch.cuda.synchronize()
     before = dict(cr.launches)
@@ -817,7 +893,8 @@ def test_replays_make_no_host_sync_and_count_k1(card):
 def test_warm_chain_counts_its_graph_launches_and_device_intervals(card):
     """A warm chain of 2 scenes of 500 iterations launches 127 graphs a
     scene (its prepare, 125 steps and its collect), each step crediting
-    one launch of K1 and of kernels A, B and C, and the tracing module reads
+    one launch of K1 and of kernels A, B and C and one K1 call at the
+    run length of its shape, and the tracing module reads
     each scene's device interval and the gap before it from its events;
     with detail on, each replay is a record with its own interval, inside
     its scene's, and the results are bitwise those with it off."""
@@ -829,6 +906,8 @@ def test_warm_chain_counts_its_graph_launches_and_device_intervals(card):
     init, gt, p2d, cams_np = synthetic_inputs(2, W, H)
     cams = compat.camera_from_numpy(cams_np, device="cpu")
     tr = _trainer(500)
+    R = cr.run_length(4, -(-W // 16) * -(-H // 16), cr.persistent_grid(
+        torch.cuda.current_device(), True, False, 17))
     hins = [tr.host_inputs(init[s], p2d[s], cams, gt[s]) for s in range(2)]
     for _ in range(2):      # the captures, then a warm group
         tr.optimize_scene_chain(hins)
@@ -853,6 +932,7 @@ def test_warm_chain_counts_its_graph_launches_and_device_intervals(card):
         assert win["counters"]["graph_launches"] == 2 * 127
         assert win["by_label"]["graph_launches"] == {
             "prepare": 2, "step": 250, "collect": 2}
+        assert win["by_label"]["k1_run_length"] == {str(R): 250}
         assert win["counters"]["host_syncs"] == win["counters"]["captures"] \
             == 0
         assert win["scenes"] == 2

@@ -105,3 +105,107 @@ def test_wrappers_return_the_live_list_and_zero_a_dead_view():
     # without return_live the wrappers keep their outputs
     assert len(cr.raster_loss_grad(pack, p1s, p2s, img, False)) == 3
     assert len(cr.raster_loss(pack, p1s, p2s, img, False)) == 2
+
+
+# (V, n_tiles, grid, R): the benchmark's cells on an H100's 396 resident
+# tile-kernel blocks, then edge shapes: one view, lists of one tile, and
+# Occlusion-Person's 1280×720 frames
+H36M_TILES, PANOPTIC_TILES, OP_TILES = 63 * 63, 120 * 68, 80 * 45
+RUN_SHAPES = {
+    "h36m.chain32": (4, H36M_TILES, 396, 2),
+    "panoptic.chain32": (4, PANOPTIC_TILES, 396, 7),
+    "panoptic.batch128": (512, PANOPTIC_TILES, 396, 48),
+    "h36m.batch8": (32, H36M_TILES, 396, 7),
+    "one_view": (1, H36M_TILES, 396, 2),
+    "one_tile": (4, 1, 396, 1),
+    "one_tile_batch": (512, 1, 396, 1),
+    "op_1280x720": (4, OP_TILES, 396, 2),
+    "op_1280x720_batch": (512, OP_TILES, 396, 48),
+}
+
+
+@pytest.mark.parametrize("name", list(RUN_SHAPES))
+def test_run_length_follows_the_call_shape(name):
+    """K1's run length is a pure function of the call's shape: the measured
+    table's R at each cell, never longer than a view's list can be, and
+    never shorter for more views or longer for a larger grid."""
+    V, n_tiles, grid, want = RUN_SHAPES[name]
+    R = cr.run_length(V, n_tiles, grid)
+    assert R == want
+    assert 1 <= R <= min(cr.MAX_RUN, n_tiles)
+    assert cr.run_length(2 * V, n_tiles, grid) >= R
+    assert cr.run_length(V, n_tiles, 2 * grid) <= R
+
+
+@pytest.mark.parametrize("run", [0, cr.MAX_RUN + 1])
+def test_forced_run_length_outside_its_range_raises(run):
+    """The kernel call takes a forced run length of 1 to MAX_RUN only, and
+    says so before it looks for a card."""
+    pack, p1s, p2s, img = kernel_probe.probe_inputs(112, 96, n_views=2,
+                                                    device="cpu")
+    with pytest.raises(ValueError, match="run length"):
+        cr._launch(pack, p1s, p2s, img, False, True, run=run)
+
+
+def test_k1_variants_reads_a_sources_entry_point():
+    """The variant timer calls a build with a run length only where the
+    source's C entry point takes one, and splits only the single-entry
+    tile kernel (the tree's takes runs, so it has no such text)."""
+    from pathlib import Path
+
+    from skelsplat_tpu_torch.ops import _build
+    from skelsplat_tpu_torch.tools import k1_variants as kv
+
+    src = (Path(_build.CSRC) / "raster_loss.cu").read_text()
+    assert kv.takes_run(src)
+    assert not kv.takes_run(src.replace("int with_grad, int run,",
+                                        "int with_grad,"))
+    with pytest.raises(ValueError, match="single-entry"):
+        kv.split_sources(src)
+
+
+@pytest.mark.parametrize("variant", ["no_sum", "no_ticket", "pack_once",
+                                     "rows_once", "bare"])
+def test_k1_variants_split_patches_its_parts(variant):
+    """Each variant of the entry split changes the texts it names and keeps
+    the rest of the source."""
+    from skelsplat_tpu_torch.tools import k1_variants as kv
+
+    parts = ["// head", kv._PACK, kv._ROWS, kv._TICKET, "// tail"]
+    src = "\n".join(parts)
+    out = kv.split_sources(src)[variant]
+    assert out != src and out.startswith("// head\n") \
+        and out.endswith("\n// tail")
+    for old, new in kv.SPLIT[variant]:
+        assert old not in out.replace(new, "") and new in out
+    assert kv.split_sources(src)["before"] == src
+
+
+def test_k1_variants_needs_a_card():
+    """The variant timer times kernels and raises on a host with no card
+    before it builds anything."""
+    from skelsplat_tpu_torch.tools import k1_variants as kv
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        kv.main([])
+
+
+def test_k1_variants_buffers_and_poison():
+    """The variant timer's shared buffers are the wrapper's sizes, and its
+    poison marks every output unwritten."""
+    from skelsplat_tpu_torch.ops import _build
+    from skelsplat_tpu_torch.tools import k1_variants as kv
+
+    x = kernel_probe.probe_inputs(112, 96, n_views=2, n_joints=15,
+                                  device="cpu")
+    b = kv.buffers(x)
+    nt = _build.n_tiles(112, 96)
+    assert b["dg"].shape == (2, 15, cr.N_GRAD)
+    assert b["part_dg"].numel() == 2 * 15 * nt * cr.N_GRAD
+    assert b["live_idx"].numel() == b["part_s"].numel() == 2 * nt
+    assert b["counts"].numel() == 4
+    kv.poison(b)
+    assert bool(b["S"].isnan().all()) and bool(b["dg"].isnan().all())
+    assert bool((b["C"] == -1).all())
