@@ -460,15 +460,16 @@ def phase_kernels():
     for name, widths, behind, l1, seed, n_joints, dead, scenes in cases:
         pack, p1s, p2s, img = kernel_inputs(widths, behind, seed, n_joints,
                                             dead, scenes)
-        before = dict(cr.launches)
+        before = _launches()
         S, C, dg, live = cr.raster_loss_grad(pack, p1s, p2s, img, l1,
                                              return_live=True)
         S_b, C_b, dg_b = cr.raster_loss_grad(pack, p1s, p2s, img, l1)
         S2, C2, live2 = cr.raster_loss(pack, p1s, p2s, img, l1,
                                        return_live=True)
         torch.cuda.synchronize()
-        assert cr.launches["raster_loss_grad"] == before["raster_loss_grad"] + 2
-        assert cr.launches["raster_loss"] == before["raster_loss"] + 1
+        launched = _launches(since=before)
+        assert launched["raster_loss_grad"] == 2
+        assert launched["raster_loss"] == 1
         Sp, Cp, dgp = cr.raster_loss_grad_plain(pack, p1s, p2s, img, l1)
         S2p, C2p = cr.raster_loss_plain(pack, p1s, p2s, img, l1)
         ref = cr.live_tiles_plain(pack, H, W)
@@ -658,15 +659,17 @@ def phase_step_kernels():
             return cp.preprocess_grad_plain(params, cams, order, S, C, dg, A,
                                             w, h, False, limbs, STEP_LAMBDA)
 
-        before = dict(cr.launches)
+        before = _launches()
         out_a = fwd()
         pack, order, p1s, p2s = out_a
         S, C, dg = cr.raster_loss_grad(pack, p1s, p2s, prof.img, False)
         losses, grads = bwd()
         torch.cuda.synchronize()
-        assert {k: cr.launches[k] - before[k] for k in before} == {
+        launched = _launches(since=before)
+        assert launched == {
             "raster_loss_grad": 1, "raster_loss": 0, "preprocess_pack": 1,
-            "preprocess_grad": 1, "compose_adam": 0}, (label, cr.launches)
+            "preprocess_grad": 1, "compose_adam": 0, "issue_rate": 0}, \
+            (label, launched)
         for got, want in zip(out_a, fwd_plain()):
             assert got.dtype == want.dtype and torch.equal(got, want), label
         got = [losses] + [getattr(grads, f) for f in PARAM_FIELDS]
@@ -730,7 +733,6 @@ def _check_compose_adam(row, label: str, suffix: str, scene_type: str,
     from skelsplat_tpu_torch.core.gaussians import SkeletonModel
     from skelsplat_tpu_torch.engine import trainer as ttrainer
     from skelsplat_tpu_torch.engine.optim import OptConfig
-    from skelsplat_tpu_torch.ops import cuda_raster as cr
     from skelsplat_tpu_torch.ops.compose_adam import NORM_ULPS
     from skelsplat_tpu_torch.tools.roofline import PEAK_BYTES_PER_S
     from skelsplat_tpu_torch.tools.timing import cuda_ms
@@ -769,13 +771,13 @@ def _check_compose_adam(row, label: str, suffix: str, scene_type: str,
     for lean in (True, False):
         st_c = tr._loop_state(params, A, None, lean)
         st_t = tr._loop_state(params, A, None, lean)
-        before = cr.launches["compose_adam"]
+        before = _launches()
         run_c, run_t = kernel(st_c, lean), composite(st_t, lean)
         for _ in range(tr.n_macro):
             run_c()
             run_t()
         torch.cuda.synchronize()
-        assert cr.launches["compose_adam"] == before + tr.n_macro, label
+        assert _launches(since=before)["compose_adam"] == tr.n_macro, label
         norms = [] if lean else [(st_c.error, st_t.error),
                                  (st_c.error_rel, st_t.error_rel)]
         for a, b in zip(tree_leaves(st_c), tree_leaves(st_t)):
@@ -844,7 +846,6 @@ def frame_loss(pose, p2d, cams, xyz=None):
 
 def phase_path(profile: bool):
     from skelsplat_tpu_torch import compat
-    from skelsplat_tpu_torch.ops import cuda_raster as cr
     from skelsplat_tpu_torch.synthetic import mpjpe, synthetic_inputs
 
     init, gt, p2d, cams_np = synthetic_inputs(1 + TIMED_FRAMES, W, H,
@@ -855,14 +856,13 @@ def phase_path(profile: bool):
     loss0 = frame_loss(init[0], p2d[0], cams)
     torch.cuda.synchronize()
 
-    for k in cr.launches:
-        cr.launches[k] = 0
+    before = _launches()
     t0 = time.perf_counter()
     params, hist = trainer.optimize_scene(init[0], p2d[0], cams, gt[0],
                                           lean=True)
     xyz = params.xyz.cpu().numpy()
     first_s = time.perf_counter() - t0
-    counts = dict(cr.launches)
+    counts = _launches(since=before)
     loss1 = frame_loss(init[0], p2d[0], cams, xyz=params.xyz)
 
     assert xyz.shape == (N_JOINTS, 3) and np.isfinite(xyz).all()
@@ -957,7 +957,6 @@ def phase_measure(lib_path, k1_ms: float, timed, timed_b):
     phase 2's K1 time on its inputs ``timed``. Returns (K3's kernels-line
     row, K1's and K2's measured-rate bounds (ms, by) on ``timed``, K1's on
     the 32 views ``timed_b``)."""
-    from skelsplat_tpu_torch.ops import cuda_raster as cr
     from skelsplat_tpu_torch.tools import kernel_probe, roofline
     from skelsplat_tpu_torch.tools.timing import cuda_ms
 
@@ -978,12 +977,10 @@ def phase_measure(lib_path, k1_ms: float, timed, timed_b):
             for opcode, n in need[op].items():
                 assert got[opcode] >= n, (op, chains, opcode, got[opcode])
 
-    for k in cr.launches:
-        cr.launches[k] = 0
-    roofline.launches["issue_rate"] = 0
+    before = _launches()
     roof = roofline.main(["--probe"])
     probe = kernel_probe.main(["--dead", "--live-slots", *LIVE_SLOTS])
-    counts = {**cr.launches, **roofline.launches}
+    counts = _launches(since=before)
     print(f"  launches on the measurement path: {counts}", flush=True)
     assert counts["issue_rate"] > 0 and counts["raster_loss_grad"] > 0
     assert counts["raster_loss"] == 0
@@ -1300,20 +1297,18 @@ def phase_batch(card: str, profile: bool):
 
 
 def _train(args):
-    """train.main in-process, with the launch counts set to 0 just before
-    and read just after. Returns (summary dicts, counts)."""
+    """train.main in-process, with the kernel launches it makes counted.
+    Returns (summary dicts, counts)."""
     from skelsplat_tpu_torch import train as train_cli
-    from skelsplat_tpu_torch.ops import cuda_raster as cr
 
     stdout = sys.stdout   # train.main's safe_state replaces it
-    for k in cr.launches:
-        cr.launches[k] = 0
+    before = _launches()
     try:
         results = train_cli.main(args)
         torch.cuda.synchronize()
     finally:
         sys.stdout = stdout
-    return results, dict(cr.launches)
+    return results, _launches(since=before)
 
 
 def _initial_mpjpe(loader) -> float:
@@ -1726,7 +1721,6 @@ def phase_extras(card: str):
 
     from skelsplat_tpu_torch import eval as eval_cli
     from skelsplat_tpu_torch.config import load_config
-    from skelsplat_tpu_torch.ops import cuda_raster as cr
     from skelsplat_tpu_torch.ops import lpips
     from skelsplat_tpu_torch.tools import bench_ssim
 
@@ -1740,8 +1734,7 @@ def phase_extras(card: str):
     cfg = load_config("h36m.yaml", overrides, make_run_dir=False)
 
     # (a) eval.image_metrics=true over phase 6's run
-    for k in cr.launches:
-        cr.launches[k] = 0
+    before = _launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1757,12 +1750,13 @@ def phase_extras(card: str):
           f"(vgg, random weights seed 0) {im['lpips']:.6f} over "
           f"{len(im['per_scene'])} scenes; {seconds / CLI_SCENES:.6f} s/scene "
           f"(host clock, MPJPE included); peak device memory {peak} bytes; "
-          f"launches {dict(cr.launches)}; on {card}", flush=True)
+          f"launches {_launches(since=before)}; on {card}", flush=True)
     assert len(im["per_scene"]) == CLI_SCENES, im
     assert 0.0 < im["ssim"] < 1.0 and im["lpips"] > 0.0, im
     assert all(np.isfinite([e["ssim"], e["lpips"]]).all()
                for e in im["per_scene"].values()), im
-    assert not any(cr.launches.values()), cr.launches
+    assert not any(_launches(since=before).values()), \
+        _launches(since=before)
     d_ssim, d_lpips = _image_metrics_card_vs_cpu(cfg, run_dir, weights,
                                                  im["per_scene"])
     lpips_ms, lpips_device_ms, lpips_peak = _time_lpips(cfg, run_dir,
@@ -1795,7 +1789,6 @@ def _mesh_vs_batch(card: str):
 
     from skelsplat_tpu_torch import compat
     from skelsplat_tpu_torch.core.cameras import stack_cameras
-    from skelsplat_tpu_torch.ops import cuda_raster as cr
     from skelsplat_tpu_torch.parallel import launch
     from skelsplat_tpu_torch.parallel.mesh import (make_mesh,
                                                    multichip_optimize)
@@ -1818,14 +1811,13 @@ def _mesh_vs_batch(card: str):
             mesh = make_mesh(1, 1, device_type=dev.type)
             multichip_optimize(mesh, trainer, init, p2d, cams_b, gt)  # warm
             torch.cuda.synchronize()
-            for k in cr.launches:
-                cr.launches[k] = 0
+            before = _launches()
             t0 = time.perf_counter()
             params, hist = multichip_optimize(mesh, trainer, init, p2d,
                                               cams_b, gt)
             xyz = params.xyz.cpu().numpy()
             dt = time.perf_counter() - t0
-            counts = dict(cr.launches)
+            counts = _launches(since=before)
     finally:
         for k, v in saved.items():
             if v is None:
@@ -2225,7 +2217,6 @@ def phase_graphs(card: str, cli_s_per_scene: float):
     from skelsplat_tpu_torch.core.cameras import stack_cameras
     from skelsplat_tpu_torch.data import cameras_io, ply
     from skelsplat_tpu_torch.data.loader import DataLoader
-    from skelsplat_tpu_torch.ops import cuda_raster as cr
     from skelsplat_tpu_torch.synthetic import synthetic_inputs
 
     out = {"card": card}
@@ -2251,13 +2242,12 @@ def phase_graphs(card: str, cli_s_per_scene: float):
         got = {}
         for m in trainers:
             torch.cuda.synchronize()
-            for k in cr.launches:
-                cr.launches[k] = 0
+            before = _launches()
             t0 = time.perf_counter()
             got[m] = frame(m, s)
             times[m].append(time.perf_counter() - t0)
-            assert dict(cr.launches) == _step_launches(ITERATIONS // 4), \
-                (m, cr.launches)
+            launched = _launches(since=before)
+            assert launched == _step_launches(ITERATIONS // 4), (m, launched)
         assert np.array_equal(got["eager"], got["captured"]), s
     runs_a = _runs_since(runs_before)
     assert runs_a == {str(k1_run_length(N_VIEWS, W, H, N_JOINTS)):
@@ -2272,7 +2262,9 @@ def phase_graphs(card: str, cli_s_per_scene: float):
         "frames_eager": times["eager"], "frames_captured": times["captured"],
         "capture_s": graph.capture_seconds,
         "instantiate_s": graph.instantiate_seconds,
-        "graph_nodes": graph.nodes, "graph_launches": graph.launches,
+        "graph_nodes": graph.nodes,
+        "replay_counts": {"/".join(k): n for k, n in
+                          graph.step_program.credit.counts.items()},
         "k1_launches_counter": ITERATIONS // 4,
         "k1_records_profiler": tiles, "live_list_records_profiler": lists,
         "device_busy_s": busy,
@@ -2435,7 +2427,6 @@ def _captured_and_eager(make, inputs, runs=("captured", "eager",
     timed through a host copy of xyz, with its peak device memory, its K1
     launches and its step replays. Returns (trainers, per-run records)."""
     from skelsplat_tpu_torch import tracing
-    from skelsplat_tpu_torch.ops import cuda_raster as cr
 
     trainers = {m: make(m == "eager") for m in set(runs)}
     assert trainers["captured"].captures and not trainers["eager"].captures
@@ -2443,8 +2434,7 @@ def _captured_and_eager(make, inputs, runs=("captured", "eager",
     for m in runs:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for k in cr.launches:
-            cr.launches[k] = 0
+        before = _launches()
         steps = tracing.counters["graph_launches"]["step"]
         t0 = time.perf_counter()
         params, _ = trainers[m].optimize_scene(None, None, inputs=inputs,
@@ -2455,7 +2445,7 @@ def _captured_and_eager(make, inputs, runs=("captured", "eager",
             "step_replays": tracing.counters["graph_launches"]["step"] - steps,
             "peak_allocated": torch.cuda.max_memory_allocated(),
             "peak_reserved": torch.cuda.max_memory_reserved(),
-            "launches": dict(cr.launches)})
+            "launches": _launches(since=before)})
         assert records[-1]["launches"] == _step_launches(
             0, ITERATIONS // 4), records[-1]
         assert np.isfinite(xyz).all()
@@ -2809,7 +2799,6 @@ def phase_prepare(card: str):
     from skelsplat_tpu_torch.core.gaussians import SkeletonModel
     from skelsplat_tpu_torch.engine.optim import OptConfig
     from skelsplat_tpu_torch.engine.trainer import SceneTrainer, TrainSettings
-    from skelsplat_tpu_torch.ops import cuda_raster as cr
     from skelsplat_tpu_torch.synthetic import synthetic_inputs
 
     out = {"card": card}
@@ -2841,8 +2830,7 @@ def phase_prepare(card: str):
         tr.optimize_scene_chain(hins)
         tr.optimize_scene_batch(init, p2d, cams_b, gt)
     torch.cuda.synchronize()
-    for k in cr.launches:
-        cr.launches[k] = 0
+    before = _launches()
     times = {}
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -2860,7 +2848,7 @@ def phase_prepare(card: str):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    launches = dict(cr.launches)
+    launches = _launches(since=before)
     assert launches == _step_launches((CHAIN_GROUP + 1) * ITERATIONS // 4,
                                       0), launches
     out["a"] = {"s_per_frame_captured": s_frame, "frames_s": frames[1:]}
@@ -2992,7 +2980,15 @@ def _step_launches(steps: int, adam: int | None = None) -> dict:
     mean fusion), 0 where they keep the torch composite."""
     return {"raster_loss_grad": steps, "raster_loss": 0,
             "preprocess_pack": steps, "preprocess_grad": steps,
-            "compose_adam": steps if adam is None else adam}
+            "compose_adam": steps if adam is None else adam, "issue_rate": 0}
+
+
+def _launches(since: dict | None = None) -> dict:
+    """Each kernel's launches by label, zeros included: in this process,
+    or since the counts ``since`` (``_build.launch_counts``)."""
+    from skelsplat_tpu_torch.ops import _build
+
+    return _build.launch_counts(since)
 
 
 def _bench_launches(args) -> int:
@@ -3020,20 +3016,18 @@ def _bench(argv, card: str):
     import math
 
     from skelsplat_tpu_torch import bench
-    from skelsplat_tpu_torch.ops import cuda_raster as cr
 
     args = bench.parser().parse_args(argv)
     gc.collect()        # the previous invocation's graphs
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    for k in cr.launches:
-        cr.launches[k] = 0
+    before = _launches()
     printed = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(printed):
         res = bench.main(argv)
     wall = time.perf_counter() - t0
-    launches = dict(cr.launches)
+    launches = _launches(since=before)
     record = json.loads(printed.getvalue().splitlines()[-1])
     assert list(record) == ["metric", "value", "unit", "vs_baseline"], record
     assert record["metric"] == f"{args.preset}_frame_opt_seconds", record

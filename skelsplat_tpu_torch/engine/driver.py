@@ -243,6 +243,79 @@ class _Fetch:
             at += n
         return out
 
+class _Sweep:
+    """What the three sweeps share: one trainer per (W, H, V) shape, the
+    per-scene write-out and the run's summary."""
+
+    def __init__(self, dataset, model, opt_cfg, settings: TrainSettings,
+                 pipe, output_dir: str, tb_writer, log, dev,
+                 debug_mode: bool):
+        self.data_root, self.output_dir = dataset.data_root, output_dir
+        self.model, self.opt_cfg, self.settings = model, opt_cfg, settings
+        self.pipe, self.tb_writer, self.log = pipe, tb_writer, log
+        self.dev, self.debug_mode = dev, debug_mode
+        self.results = []
+        self._trainers: dict[tuple, SceneTrainer] = {}
+
+    def trainer(self, W: int, H: int, nviews: int) -> SceneTrainer:
+        """The trainer of scenes of the (W, H, V) shape, made at the
+        first."""
+        key = (W, H, nviews)
+        if key not in self._trainers:
+            self._trainers[key] = SceneTrainer(
+                self.model, self.opt_cfg, self.settings, W, H,
+                antialiasing=bool(self.pipe.antialiasing), renderer="auto",
+                device=self.dev, debug=self.debug_mode)
+        return self._trainers[key]
+
+    def write_scene(self, scene_id, name: str, seconds: float, stop_it: int,
+                    err, err_rel, saves, history=None,
+                    announce: bool = False) -> dict:
+        """A finished scene's files and summary row, from host arrays:
+        ``saves`` its checkpoints in iteration order, (iteration, (xyz,
+        log_scales, quats, opacity)); ``err``/``err_rel`` its last
+        per-joint errors; ``history`` its (losses, error, error_rel) per
+        macro step for TensorBoard, or None. ``announce`` prints each
+        save. Returns the row."""
+        for it, cloud in saves:
+            # parameters freeze at the stop, so the first checkpoint at or
+            # after it holds the stop's state: it is saved under the stop
+            # iteration, and nothing after it
+            stopped = bool(stop_it) and it >= stop_it
+            it = stop_it if stopped else it
+            if announce:
+                print(f"Saving iteration {it} for scene {name}")
+            ply.write_gaussian_ply(
+                os.path.join(self.output_dir, "point_cloud",
+                             f"iteration_{it}", f"{name}.ply"), *cloud)
+            if stopped:
+                break
+        subject, activity, step = _parse_scene_name(name, self.data_root)
+        if subject == "S9" and activity in S9_BAD:
+            err = np.zeros_like(err)    # bad calibration: not logged
+        if history is not None:
+            _log_tb_history(self.tb_writer, subject, activity, step, *history,
+                            self.settings.accumulation_steps)
+        row = {"scene_id": scene_id, "scene_name": name,
+               "abs_error": float(err.mean()),
+               "rel_error": float(err_rel.mean()), "seconds": seconds,
+               "stopped_at": stop_it}
+        self.results.append(row)
+        return row
+
+    def finish(self, per_scene: str, **summary) -> list:
+        """Log the sweep's end (``per_scene`` its mean time), write
+        ``train_summary.json`` (the rows, then ``summary``'s keys) and
+        close TensorBoard. Returns the rows."""
+        self.log.info(f"Training completed. {len(self.results)} scenes, "
+                      f"{per_scene}")
+        with open(os.path.join(self.output_dir, "train_summary.json"),
+                  "w") as f:
+            json.dump({"scenes": self.results, **summary}, f, indent=2)
+        if self.tb_writer is not None:
+            self.tb_writer.close()
+        print("Training completed.")
+        return self.results
 
 
 def training(dataset, model_group, opt_group, pipe, debug, training_group,
@@ -278,22 +351,19 @@ def training(dataset, model_group, opt_group, pipe, debug, training_group,
                     "%d joints", pipe.rendering,
                     RENDERING_CHANNELS[pipe.rendering],
                     dataset_loader.n_joints)
+    sweep = _Sweep(dataset, model, opt_cfg, settings, pipe, output_dir,
+                   tb_writer, log, dev, debug_mode)
     if launch.world_size() > 1:
-        return _training_multichip(dataset, dataset_loader, model, opt_cfg,
-                                   settings, pipe, save_iterations,
-                                   output_dir, tb_writer, log, dev,
-                                   debug_mode, dropout_generator)
+        return _training_multichip(sweep, dataset_loader, save_iterations,
+                                   dropout_generator)
     if batchable(training_group, settings, save_iterations,
                  opt_cfg.iterations):
-        return _training_batched(dataset, dataset_loader, model, opt_cfg,
-                                 settings, pipe, int(training_group.scene_batch),
-                                 output_dir, tb_writer, log, dev, debug_mode)
+        return _training_batched(sweep, dataset_loader,
+                                 int(training_group.scene_batch))
     if int(getattr(training_group, "scene_batch", 1) or 1) > 1:
         log.info("scene_batch>1 requested but dropout/noise/save_iterations/"
                  "early_stopping need the per-scene path; batching disabled")
 
-    trainers: dict[tuple, SceneTrainer] = {}
-    results = []
     log.info(f"Training on {len(dataset_loader)} scenes")
 
     # +training.skip_existing=true skips scenes whose final PLY exists in
@@ -356,41 +426,16 @@ def training(dataset, model_group, opt_group, pipe, debug, training_group,
                 at += len(vals)
                 dt = time.perf_counter() - t0
                 total_opt_seconds += dt
-                stop_it = int(vals[0])
-                for i, it in enumerate(save_its):
-                    # parameters freeze at the stop, so the first checkpoint
-                    # at or after it holds the stop's state: it is saved
-                    # under the stop iteration, and nothing after it
-                    stopped = bool(stop_it) and it >= stop_it
-                    it = stop_it if stopped else it
-                    path = os.path.join(output_dir, "point_cloud",
-                                        f"iteration_{it}",
-                                        f"{record.scene_name}.ply")
-                    print(f"Saving iteration {it} for scene "
-                          f"{record.scene_name}")
-                    ply.write_gaussian_ply(
-                        path, *vals[n_tel + 4 * i:n_tel + 4 * i + 4])
-                    if stopped:
-                        break
-                subject, activity, step = _parse_scene_name(
-                    record.scene_name, dataset.data_root)
-                err, err_rel = vals[1], vals[2]
-                if subject == "S9" and activity in S9_BAD:
-                    err = np.zeros_like(err)    # bad calibration: not logged
+                saves = [(it, vals[n_tel + 4 * i:n_tel + 4 * i + 4])
+                         for i, it in enumerate(save_its)]
+                row = sweep.write_scene(
+                    scene_id, record.scene_name, dt, int(vals[0]), vals[1],
+                    vals[2], saves,
+                    vals[3:6] if tb_writer is not None else None,
+                    announce=True)
                 log.info(f"Scene {record.scene_name}: "
-                         f"abs {err.mean():.2f} rel {err_rel.mean():.2f} "
-                         f"({dt:.2f}s)")
-                if tb_writer is not None:
-                    _log_tb_history(tb_writer, subject, activity, step,
-                                    *vals[3:6], settings.accumulation_steps)
-                results.append({
-                    "scene_id": scene_id,
-                    "scene_name": record.scene_name,
-                    "abs_error": float(err.mean()),
-                    "rel_error": float(err_rel.mean()),
-                    "seconds": dt,
-                    "stopped_at": stop_it,
-                })
+                         f"abs {row['abs_error']:.2f} "
+                         f"rel {row['rel_error']:.2f} ({dt:.2f}s)")
 
     def _dispatch():
         """Enqueue the buffered group: one ``optimize_scene_chain`` when
@@ -461,20 +506,14 @@ def training(dataset, model_group, opt_group, pipe, debug, training_group,
                 hm_ops.dropout_masks_torch(nv, n, dropout_generator)
             if record.scene_name in prev_scenes:
                 prev = prev_scenes[record.scene_name]
-                results.append(prev)
+                sweep.results.append(prev)
                 total_opt_seconds += float(prev.get("seconds", 0.0))
             continue
         cams_host = cameras_io.build_camera_batch(record.cameras,
                                                   device="cpu")
         W = int(cams_host.width.max())
         H = int(cams_host.height.max())
-        key = (W, H, nv)
-        if key not in trainers:
-            trainers[key] = SceneTrainer(
-                model, opt_cfg, settings, W, H,
-                antialiasing=bool(pipe.antialiasing), renderer="auto",
-                device=dev, debug=debug_mode)
-        trainer = trainers[key]
+        trainer = sweep.trainer(W, H, nv)
 
         _save_scene_artifacts(output_dir, record)
         if debug.save_images and n_run == 0 and not prep_buf:
@@ -503,25 +542,15 @@ def training(dataset, model_group, opt_group, pipe, debug, training_group,
     # dispatch-to-result interval overlaps the next group's
     sweep_wall = time.perf_counter() - sweep_t0
     n_run = max(n_run, 1)
-    log.info(f"Training completed. {len(results)} scenes, "
-             f"{sweep_wall / n_run:.3f} s/scene mean (wall)")
-    with open(os.path.join(output_dir, "train_summary.json"), "w") as f:
-        json.dump({"scenes": results,
-                   "mean_seconds_per_scene": sweep_wall / n_run,
-                   "sweep_wall_seconds": sweep_wall,
-                   "sum_scene_latency_seconds": total_opt_seconds,
-                   "pipelined_scenes": pipeline}, f,
-                  indent=2)
-    if tb_writer is not None:
-        tb_writer.close()
-    print("Training completed.")
-    return results
+    return sweep.finish(f"{sweep_wall / n_run:.3f} s/scene mean (wall)",
+                        mean_seconds_per_scene=sweep_wall / n_run,
+                        sweep_wall_seconds=sweep_wall,
+                        sum_scene_latency_seconds=total_opt_seconds,
+                        pipelined_scenes=pipeline)
 
 
-def _training_batched(dataset, dataset_loader: DataLoader, model, opt_cfg,
-                      settings: TrainSettings, pipe, scene_batch: int,
-                      output_dir: str, tb_writer, log, dev,
-                      debug_mode: bool):
+def _training_batched(sweep: _Sweep, dataset_loader: DataLoader,
+                      scene_batch: int):
     """The batched sweep (counterpart of the JAX driver's
     ``_training_batched``): consecutive scenes of one (W, H, V) shape in
     groups of up to ``scene_batch``, each group one
@@ -534,11 +563,10 @@ def _training_batched(dataset, dataset_loader: DataLoader, model, opt_cfg,
     ``wall_seconds_per_scene`` is the sweep's wall time per scene. On the
     card a batch is replays of its shape's captured step: a tail group of
     another size is another graph."""
+    log, tb_writer = sweep.log, sweep.tb_writer
     records = [rec for _, rec in dataset_loader]
     log.info(f"Training on {len(records)} scenes in batches of up to "
              f"{scene_batch}")
-    results = []
-    trainers: dict[tuple, SceneTrainer] = {}
     total = 0.0
     sweep_t0 = time.perf_counter()
 
@@ -547,31 +575,15 @@ def _training_batched(dataset, dataset_loader: DataLoader, model, opt_cfg,
         host = fetch.result()
         dt = time.perf_counter() - t0
         total += dt
-        xyz, log_scales, quats, opacity, stopped, err_b, err_rel_b = host[:7]
+        stopped, err_b, err_rel_b = host[4:7]
         for b, rec in enumerate(group):
-            stop_it = int(stopped[b])
-            ply.write_gaussian_ply(
-                os.path.join(output_dir, "point_cloud",
-                             f"iteration_{stop_it or opt_cfg.iterations}",
-                             f"{rec.scene_name}.ply"),
-                xyz[b], log_scales[b], quats[b], opacity[b])
-            subject, activity, step = _parse_scene_name(rec.scene_name,
-                                                        dataset.data_root)
-            err, err_rel = err_b[b], err_rel_b[b]
-            if subject == "S9" and activity in S9_BAD:
-                err = np.zeros_like(err)    # bad calibration: not logged
-            if tb_writer is not None:
-                _log_tb_history(tb_writer, subject, activity, step,
-                                *(h[b] for h in host[7:10]),
-                                settings.accumulation_steps)
-            results.append({
-                "scene_id": rec.scene_id,
-                "scene_name": rec.scene_name,
-                "abs_error": float(err.mean()),
-                "rel_error": float(err_rel.mean()),
-                "seconds": dt / len(group),
-                "stopped_at": stop_it,
-            })
+            # the one save, the last iteration's
+            sweep.write_scene(
+                rec.scene_id, rec.scene_name, dt / len(group),
+                int(stopped[b]), err_b[b], err_rel_b[b],
+                [(sweep.opt_cfg.iterations, [f[b] for f in host[:4]])],
+                [h[b] for h in host[7:10]] if tb_writer is not None
+                else None)
         log.info(f"Batch of {len(group)} scenes: {dt:.2f}s "
                  f"({dt / len(group):.3f} s/scene)")
 
@@ -593,16 +605,10 @@ def _training_batched(dataset, dataset_loader: DataLoader, model, opt_cfg,
             group.append(records[i])
             cams.append(cams2)
             i += 1
-        if key not in trainers:
-            W, H, _ = key
-            trainers[key] = SceneTrainer(
-                model, opt_cfg, settings, W, H,
-                antialiasing=bool(pipe.antialiasing), renderer="auto",
-                device=dev, debug=debug_mode)
-
-        _save_scene_artifacts(output_dir, group[-1])
+        trainer = sweep.trainer(*key)
+        _save_scene_artifacts(sweep.output_dir, group[-1])
         t0 = time.perf_counter()
-        params, history = trainers[key].optimize_scene_batch(
+        params, history = trainer.optimize_scene_batch(
             np.stack([r.pose_3d for r in group]),
             np.stack([np.asarray(r.poses_2d)[..., :2] for r in group]),
             stack_cameras(cams), np.stack([r.pose_3d_gt for r in group]),
@@ -620,26 +626,16 @@ def _training_batched(dataset, dataset_loader: DataLoader, model, opt_cfg,
     if pending is not None:
         finalize(*pending)
 
-    n = max(len(results), 1)
+    n = max(len(sweep.results), 1)
     wall = time.perf_counter() - sweep_t0
-    log.info(f"Training completed. {len(results)} scenes, "
-             f"{wall / n:.3f} s/scene mean (wall)")
-    with open(os.path.join(output_dir, "train_summary.json"), "w") as f:
-        json.dump({"scenes": results,
-                   "mean_seconds_per_scene": total / n,
-                   "wall_clock_sweep_seconds": wall,
-                   "wall_seconds_per_scene": wall / n}, f, indent=2)
-    if tb_writer is not None:
-        tb_writer.close()
-    print("Training completed.")
-    return results
+    return sweep.finish(f"{wall / n:.3f} s/scene mean (wall)",
+                        mean_seconds_per_scene=total / n,
+                        wall_clock_sweep_seconds=wall,
+                        wall_seconds_per_scene=wall / n)
 
 
-def _training_multichip(dataset, dataset_loader: DataLoader, model, opt_cfg,
-                        settings: TrainSettings, pipe, save_iterations,
-                        output_dir: str, tb_writer, log, dev,
-                        debug_mode: bool,
-                        dropout_generator: torch.Generator):
+def _training_multichip(sweep: _Sweep, dataset_loader: DataLoader,
+                        save_iterations, dropout_generator: torch.Generator):
     """The sweep on a (scenes × views) mesh of the process group's ranks
     (counterpart of the JAX driver's ``_training_multichip``): views split
     over the ``views`` axis where they divide (``choose_mesh``), scenes
@@ -656,11 +652,12 @@ def _training_multichip(dataset, dataset_loader: DataLoader, model, opt_cfg,
                                                    choose_mesh, make_mesh,
                                                    multichip_optimize)
 
+    log, settings = sweep.log, sweep.settings
     rank0 = launch.rank() == 0
     records = [rec for _, rec in dataset_loader]
     nviews = len(records[0].cameras)
     scenes_axis, views_axis = choose_mesh(launch.world_size(), nviews)
-    mesh = make_mesh(scenes_axis, views_axis, device_type=dev.type)
+    mesh = make_mesh(scenes_axis, views_axis, device_type=sweep.dev.type)
     if rank0:
         log.info(f"multichip mesh: {{'scenes': {scenes_axis}, "
                  f"'views': {views_axis}}}")
@@ -672,8 +669,6 @@ def _training_multichip(dataset, dataset_loader: DataLoader, model, opt_cfg,
                         "serial; the per-scene path keeps it exactly)",
                         settings.early_stopping)
 
-    trainers: dict[tuple, SceneTrainer] = {}
-    results = []
     total = 0.0
     for i in range(0, len(records), scenes_axis):
         group = records[i:i + scenes_axis]
@@ -683,12 +678,7 @@ def _training_multichip(dataset, dataset_loader: DataLoader, model, opt_cfg,
                      for r in group_p]
         W = int(max(c.width.max() for c in cams_list))
         H = int(max(c.height.max() for c in cams_list))
-        key = (W, H, nviews)
-        if key not in trainers:
-            trainers[key] = SceneTrainer(
-                model, opt_cfg, settings, W, H,
-                antialiasing=bool(pipe.antialiasing), renderer="auto",
-                device=dev, debug=debug_mode)
+        trainer = sweep.trainer(W, H, nviews)
         init_b, gt_b, p2d_b, cams_b = batch_scene_records(group_p, cams_list)
         drop_b = None
         if settings.dropout:
@@ -700,7 +690,7 @@ def _training_multichip(dataset, dataset_loader: DataLoader, model, opt_cfg,
         saves = []
         t0 = time.perf_counter()
         _, hist_b = multichip_optimize(
-            mesh, trainers[key], init_b, p2d_b, cams_b, gt_b, drop_b=drop_b,
+            mesh, trainer, init_b, p2d_b, cams_b, gt_b, drop_b=drop_b,
             checkpoint_iterations=save_iterations,
             checkpoint_fn=lambda it, prm: saves.append((it, prm)))
         if not rank0:
@@ -714,45 +704,18 @@ def _training_multichip(dataset, dataset_loader: DataLoader, model, opt_cfg,
         total += dt
         stopped, losses_b, err_b, err_rel_b = host[:4]
         for b, rec in enumerate(group):
-            stop_b = int(stopped[b])
-            for j, (it, _) in enumerate(saves):
-                # parameters freeze at the stop: the first checkpoint at or
-                # after it holds the stop's state
-                stop_here = bool(stop_b) and it >= stop_b
-                ply.write_gaussian_ply(
-                    os.path.join(output_dir, "point_cloud",
-                                 f"iteration_{stop_b if stop_here else it}",
-                                 f"{rec.scene_name}.ply"),
-                    *(f[b] for f in host[4 + 4 * j:8 + 4 * j]))
-                if stop_here:
-                    break
-            err = err_b[b, -1]
-            subject, activity, step = _parse_scene_name(rec.scene_name,
-                                                        dataset.data_root)
-            if subject == "S9" and activity in S9_BAD:
-                err = np.zeros_like(err)    # bad calibration: not logged
-            _log_tb_history(tb_writer, subject, activity, step, losses_b[b],
-                            err_b[b], err_rel_b[b],
-                            settings.accumulation_steps)
-            results.append({
-                "scene_id": rec.scene_id, "scene_name": rec.scene_name,
-                "abs_error": float(err.mean()),
-                "rel_error": float(err_rel_b[b, -1].mean()),
-                "seconds": dt / len(group),
-                "stopped_at": stop_b})
+            saves_b = [(it, [f[b] for f in host[4 + 4 * j:8 + 4 * j]])
+                       for j, (it, _) in enumerate(saves)]
+            sweep.write_scene(rec.scene_id, rec.scene_name, dt / len(group),
+                              int(stopped[b]), err_b[b, -1],
+                              err_rel_b[b, -1], saves_b,
+                              (losses_b[b], err_b[b], err_rel_b[b]))
         log.info(f"mesh batch of {len(group)}: {dt:.2f}s")
     if not rank0:
-        return results
-    n = max(len(results), 1)
-    log.info(f"Training completed. {len(results)} scenes, "
-             f"{total / n:.3f} s/scene mean")
-    with open(os.path.join(output_dir, "train_summary.json"), "w") as f:
-        json.dump({"scenes": results,
-                   "mean_seconds_per_scene": total / n}, f, indent=2)
-    if tb_writer is not None:
-        tb_writer.close()
-    print("Training completed.")
-    return results
+        return sweep.results
+    n = max(len(sweep.results), 1)
+    return sweep.finish(f"{total / n:.3f} s/scene mean",
+                        mean_seconds_per_scene=total / n)
 
 
 def _prepare_tb(output_dir):

@@ -40,17 +40,12 @@ need. Python's collector is off during a capture: a graph destroyed
 inside another's capture invalidates it. A capture or
 replay failure raises; nothing falls back to the eager loop.
 
-The kernel wrappers (K1's, kernels A and B of ``ops/cuda_preprocess.py``
-and kernel C of ``ops/compose_adam.py``) count their launches in
-``cuda_raster.launches`` where they launch. During a capture they launch
-nothing, so the graph undoes the count that capture made, keeps it as the
-launches the graph holds, and adds them on every replay; K1's calls by run
-length (the ``tracing`` counter ``k1_run_length``) likewise.
+A capture launches nothing, so the counts of device work it makes are
+held back (``tracing.capturing``) and credited on every replay.
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import gc
 import time
@@ -58,7 +53,6 @@ import time
 import torch
 
 from skelsplat_tpu_torch import tracing
-from skelsplat_tpu_torch.ops import cuda_raster
 from skelsplat_tpu_torch.utils import tree_leaves, tree_map
 
 WARMUP_STEPS = 3
@@ -94,7 +88,8 @@ class Program:
     replayed, and every later call is a replay. Returns what the function
     returned when it was captured (tensors of the graph's pool, rewritten
     by every replay). ``kind`` names the program (prepare, step, collect)
-    in the ``tracing`` counters and replay records."""
+    in the ``tracing`` counters and replay records; ``credit`` is what
+    one replay adds to the counters (``tracing.Credit``)."""
 
     def __init__(self, fn, warmup: int, kind: str):
         self._fn = fn
@@ -103,8 +98,7 @@ class Program:
         self.warm = 0
         self.graph = None
         self.outputs = None
-        self.launches = {}          # kernel launches one replay makes
-        self.run_lengths = {}       # its K1 calls by run length
+        self.credit = None
         self.capture_seconds = None
         self.instantiate_seconds = None
         self.nodes = None
@@ -118,11 +112,7 @@ class Program:
             self._capture()
         with tracing.replay(self.kind):
             self.graph.replay()
-        tracing.count("graph_launches", self.kind)
-        for name, n in self.launches.items():
-            cuda_raster.launches[name] += n
-        for label, n in self.run_lengths.items():
-            tracing.count("k1_run_length", label, n)
+        tracing.credit(self.credit)
         return self.outputs
 
     def _warm_call(self):
@@ -136,15 +126,14 @@ class Program:
         return out
 
     def _capture(self):
-        before = dict(cuda_raster.launches)
-        runs_before = collections.Counter(tracing.counters["k1_run_length"])
         # the capture's own time: the queued work drained and the cache
         # emptied first (torch.cuda.graph empties it on entry)
         torch.cuda.synchronize()
         tracing.synced("graphs.capture")
         torch.cuda.empty_cache()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with tracing.span("skelsplat.capture") as capture:
+        with tracing.span("skelsplat.capture") as capture, \
+                tracing.capturing(self.kind) as held:
             # a dead trainer's graphs sit in reference cycles, and the
             # collector would run their destructor (cudaGraphExecDestroy,
             # not permitted while capturing) wherever it fires: not inside
@@ -164,15 +153,7 @@ class Program:
             torch.cuda.synchronize()
             tracing.synced("graphs.capture")
         self.capture_seconds = capture.seconds
-        tracing.count("captures", self.kind)
-        self.launches = {k: cuda_raster.launches[k] - before[k]
-                         for k in before}
-        cuda_raster.launches.update(before)
-        # K1's run lengths likewise: credited per replay, not at capture
-        self.run_lengths = dict(tracing.counters["k1_run_length"]
-                                - runs_before)
-        for label, n in self.run_lengths.items():
-            tracing.count("k1_run_length", label, -n)
+        self.credit = tracing.Credit(self.kind, held)
         self.nodes = graph_nodes(graph)
         t0 = time.perf_counter()
         graph.instantiate()
@@ -226,8 +207,6 @@ class StepGraph:
     capture_seconds = property(lambda self: self.step_program.capture_seconds)
     instantiate_seconds = property(
         lambda self: self.step_program.instantiate_seconds)
-    launches = property(lambda self: self.step_program.launches)
-    run_lengths = property(lambda self: self.step_program.run_lengths)
 
     def _grow(self, group_inputs):
         """Group buffers that hold ``group_inputs``' group; the prepare and

@@ -57,7 +57,7 @@ from skelsplat_tpu_torch.engine.optim import (BETA1, BETA2, EPS, AdamGroups,
 from skelsplat_tpu_torch.ops import compose_adam, cuda_preprocess, cuda_raster
 from skelsplat_tpu_torch.ops import heatmaps as hm
 from skelsplat_tpu_torch.ops import rasterizer
-from skelsplat_tpu_torch.ops.fused import FUSED_LOSSES, make_fused_view_loss
+from skelsplat_tpu_torch.ops.fused import make_fused_view_loss
 from skelsplat_tpu_torch.ops.similarity import confidence_weighted_mean
 from skelsplat_tpu_torch.utils import (put_trees, stack_trees, tree_leaves,
                                        tree_map)
@@ -278,6 +278,11 @@ class TrainSettings:
     std_dev_noise: float = 0.0  # σ (mm) of the noise added to the initial pose
     view_fusion: str = "mean"   # xyz fusion: mean | confidence_weighted
 
+    @property
+    def stops_early(self) -> bool:
+        """Whether the early-stop window runs (``opt_early_stopping``)."""
+        return self.early_stopping == "opt_early_stopping"
+
 
 @dataclasses.dataclass(frozen=True)
 class MacroHistory:
@@ -424,9 +429,10 @@ class SceneTrainer:
                              f"got {renderer!r}")
         view_fusion_fn(settings.view_fusion)
         if renderer == "auto":
-            renderer = ("cuda" if settings.loss_function in FUSED_LOSSES
-                        else "dense")
-        if renderer != "dense" and settings.loss_function not in FUSED_LOSSES:
+            renderer = ("cuda" if settings.loss_function
+                        in cuda_raster.CUDA_LOSSES else "dense")
+        if (renderer != "dense"
+                and settings.loss_function not in cuda_raster.CUDA_LOSSES):
             raise ValueError(f"renderer {renderer!r} does not implement "
                              f"{settings.loss_function!r}")
         self.renderer = renderer
@@ -660,8 +666,7 @@ class SceneTrainer:
         scene's last telemetry row (K=1).
         """
         with tracing.unit("skelsplat.chain"):
-            use_stop = self.settings.early_stopping == "opt_early_stopping"
-            hist8 = hist8_init if use_stop else None
+            hist8 = hist8_init if self.settings.stops_early else None
             if self.captures:
                 G = len(host_inputs_list)
                 group = put_trees([stack_trees(list(host_inputs_list))],
@@ -773,9 +778,9 @@ class SceneTrainer:
         dev = self.device
         lead = tuple(params.xyz.shape[:-2])
         A, K = self.settings.accumulation_steps, self.n_macro
-        use_stop = self.settings.early_stopping == "opt_early_stopping"
         carry = init_macro_carry(params, self.adam.init(params), nviews,
-                                 use_stop, A != nviews, hist8_init)
+                                 self.settings.stops_early, A != nviews,
+                                 hist8_init)
         n = params.xyz.shape[-2]
 
         def zeros(shape, dtype=torch.float32):
@@ -807,7 +812,7 @@ class SceneTrainer:
                 return losses_v, grads_v
             return step
         A = self.settings.accumulation_steps
-        use_stop = self.settings.early_stopping == "opt_early_stopping"
+        use_stop = self.settings.stops_early
         general = A != nviews
         view_fusion = self.settings.view_fusion
         idx_all = visit_order(self.n_macro, A, nviews, self.device)
@@ -829,7 +834,6 @@ class SceneTrainer:
         inputs, leading group axis, each scene with scene axes ``lead``)
         and cached."""
         A = self.settings.accumulation_steps
-        use_stop = self.settings.early_stopping == "opt_early_stopping"
         n = group[0].shape[-2]
         key = (lead, nviews, A, n, self.W, self.H, lean,
                self.settings.early_stopping, A != nviews, self.renderer,
@@ -863,7 +867,7 @@ class SceneTrainer:
 
         graph = self.graphs[key] = graphs.StepGraph(
             group, make_scene, make_step, make_results,
-            window_shape=lead + (8,) if use_stop else None,
+            window_shape=lead + (8,) if self.settings.stops_early else None,
             window_of=lambda st: st.carry[2])
         return graph
 
@@ -929,7 +933,7 @@ class SceneTrainer:
         if lean:
             err, err_rel = _telemetry_norms(params.xyz, pose_3d_gt)
             err_h, err_rel_h = err.unsqueeze(-2), err_rel.unsqueeze(-2)
-        use_stop = self.settings.early_stopping == "opt_early_stopping"
         return params, MacroHistory(
             losses=st.losses, error=err_h, error_rel=err_rel_h,
-            stopped_at=st.stop_max, hist8=st.carry[2] if use_stop else None)
+            stopped_at=st.stop_max,
+            hist8=st.carry[2] if self.settings.stops_early else None)

@@ -8,6 +8,12 @@ started together, and one more links them. Building needs ``nvcc``
 (CUDA_HOME, then PATH, then /usr/local/cuda) and an sm_90 card: the kernels
 are compiled for ``sm_90a`` only.
 
+Every kernel the wrappers launch goes through ``launch``, which counts it
+under its label in the ``tracing`` counter ``kernel_launches``;
+``launch_counts`` reads that counter. A new kernel needs its source in
+``SOURCES``, its C entry point's argument types in ``ENTRIES``, its label
+in ``KERNELS`` and a wrapper that calls ``launch``.
+
     python -m skelsplat_tpu_torch.ops._build
 
 times a build from scratch with the compiles one after another and all at
@@ -26,6 +32,10 @@ import tempfile
 import threading
 from pathlib import Path
 
+import torch
+
+from skelsplat_tpu_torch import tracing
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("raster_loss.cu", "issue_rate.cu", "preprocess.cu",
@@ -34,6 +44,29 @@ HEADERS = ("raster_math.cuh",)
 TILE = 16
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
+
+_vp, _i32, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the C entry points' argument types; each returns a cudaError_t as int32,
+# and a kernel's entry point takes its stream last
+ENTRIES = {
+    "skelsplat_raster_loss": [_vp] * 4 + [_i32] * 7 + [_vp] * 11,
+    "skelsplat_raster_loss_occupancy": [_i32] * 3 + [_vp],
+    "skelsplat_raster_loss_slot_bound": [_i32, _i32],
+    "skelsplat_preprocess_pack": [_vp] * 16 + [_i32] * 7 + [_vp] * 5,
+    "skelsplat_preprocess_grad": ([_vp] * 16 + [_i32] * 15 + [_f32]
+                                  + [_vp] * 6),
+    "skelsplat_compose_adam": ([_vp] * 24 + [_i32] * 4 + [_f32] * 2
+                               + [_i32] * 2 + [_f32] * 11 + [_vp]),
+    "skelsplat_issue_rate": [_vp, _vp] + [_i32] * 4 + [_vp],
+}
+# each kernel's label (its count in kernel_launches and its profiler range
+# skelsplat::<label>) and its entry point: K1 and K2 share theirs
+KERNELS = {"raster_loss_grad": "skelsplat_raster_loss",
+           "raster_loss": "skelsplat_raster_loss",
+           "preprocess_pack": "skelsplat_preprocess_pack",
+           "preprocess_grad": "skelsplat_preprocess_grad",
+           "compose_adam": "skelsplat_compose_adam",
+           "issue_rate": "skelsplat_issue_rate"}
 
 _lock = threading.Lock()
 _lib = None
@@ -116,35 +149,16 @@ def load_library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            import torch
-
             major, minor = torch.cuda.get_device_capability()
             if (major, minor) != (9, 0):
                 raise RuntimeError(
                     f"kernels are built for sm_90a; this card is "
                     f"sm_{major}{minor} ({torch.cuda.get_device_name()})")
             lib = ctypes.CDLL(str(build()))
-            vp, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.skelsplat_raster_loss.argtypes = (
-                [vp] * 4 + [i32] * 7 + [vp] * 11)
-            lib.skelsplat_raster_loss.restype = i32
-            lib.skelsplat_raster_loss_occupancy.argtypes = [i32] * 3 + [vp]
-            lib.skelsplat_raster_loss_occupancy.restype = i32
-            lib.skelsplat_raster_loss_slot_bound.argtypes = [i32, i32]
-            lib.skelsplat_raster_loss_slot_bound.restype = i32
-            lib.skelsplat_preprocess_pack.argtypes = (
-                [vp] * 16 + [i32] * 7 + [vp] * 5)
-            lib.skelsplat_preprocess_pack.restype = i32
-            lib.skelsplat_preprocess_grad.argtypes = (
-                [vp] * 16 + [i32] * 15 + [ctypes.c_float] + [vp] * 6)
-            lib.skelsplat_preprocess_grad.restype = i32
-            lib.skelsplat_compose_adam.argtypes = (
-                [vp] * 24 + [i32] * 4 + [ctypes.c_float] * 2 + [i32] * 2
-                + [ctypes.c_float] * 11 + [vp])
-            lib.skelsplat_compose_adam.restype = i32
-            lib.skelsplat_issue_rate.argtypes = [vp, vp] + [i32] * 4 + [vp]
-            lib.skelsplat_issue_rate.restype = i32
-            lib.skelsplat_error_string.argtypes = [i32]
+            for name, argtypes in ENTRIES.items():
+                fn = getattr(lib, name)
+                fn.argtypes, fn.restype = argtypes, _i32
+            lib.skelsplat_error_string.argtypes = [_i32]
             lib.skelsplat_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
@@ -159,6 +173,26 @@ def check_launch(rc: int, name: str):
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{error_string(rc)} (cudaError {rc})")
+
+
+def launch(label: str, device: torch.device, *args) -> None:
+    """Launch kernel ``label`` (``KERNELS``) with ``args`` on the current
+    stream of CUDA ``device``, inside the profiler range
+    ``skelsplat::<label>``; raise if it fails, and count it."""
+    lib = load_library()
+    with torch.cuda.device(device), \
+            tracing.profiler_range(f"skelsplat::{label}"):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, KERNELS[label])(*args, ctypes.c_void_p(stream))
+    check_launch(rc, label)
+    tracing.count("kernel_launches", label)
+
+
+def launch_counts(since: dict | None = None) -> dict:
+    """Each kernel's launches in this process, by label, 0 for a kernel
+    not launched yet; with ``since``, those made after it was read."""
+    counts = tracing.counters["kernel_launches"]
+    return {k: counts[k] - (since[k] if since else 0) for k in KERNELS}
 
 
 def occupancy(with_grad: bool, l1: bool, slot_bound: int) -> dict:

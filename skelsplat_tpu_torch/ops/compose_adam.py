@@ -12,20 +12,17 @@ macro step counter, which it reads on the device.
 The kernel runs on the card only. Its plain version is the torch
 composite it replaces, ``engine/trainer.py::compose_macro`` with
 ``AdamGroups.step`` and the loop state's writes, which
-``engine/trainer.py::compose_adam_step`` runs on CPU tensors. Each launch
-counts in ``cuda_raster.launches["compose_adam"]``.
+``engine/trainer.py::compose_adam_step`` runs on CPU tensors.
 """
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
 
-from skelsplat_tpu_torch import tracing
 from skelsplat_tpu_torch.core.gaussians import PARAM_FIELDS, GaussianParams
-from skelsplat_tpu_torch.ops import cuda_raster
+from skelsplat_tpu_torch.ops import _build
 
 WIDTHS = (3, 3, 4, 1)   # floats a Gaussian of each group
 # the telemetry norms' largest distance from the torch composite's, in
@@ -65,8 +62,6 @@ def compose_adam(params: GaussianParams, m: GaussianParams,
     ``lr_init``, ``lr_final``, ``max_steps``, ``delay_steps`` and
     ``delay_mult``; ``lrs`` are the other three groups' (scaling,
     rotation, opacity); ``beta1``, ``beta2`` and ``eps`` are Adam's."""
-    from skelsplat_tpu_torch.ops import _build
-
     dev = losses_v.device
     if dev.type != "cuda":
         raise ValueError("kernel C runs on CUDA tensors; on the CPU "
@@ -104,13 +99,5 @@ def compose_adam(params: GaussianParams, m: GaussianParams,
     consts = [float(x) for x in (
         delay_mult, 1 - delay_mult, 0.5 * math.pi, *lrs, beta1, 1.0 - beta1,
         beta2, 1.0 - beta2, eps)]
-    lib = _build.load_library()
-    with torch.cuda.device(dev), \
-            tracing.profiler_range("skelsplat::compose_adam"):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.skelsplat_compose_adam(
-            *ptrs, S, A, N, rows, float(lr_init), float(lr_final),
-            int(max_steps), int(delay_steps), *consts,
-            ctypes.c_void_p(stream))
-    _build.check_launch(rc, "compose_adam")
-    cuda_raster.launches["compose_adam"] += 1
+    _build.launch("compose_adam", dev, *ptrs, S, A, N, rows, float(lr_init),
+                  float(lr_final), int(max_steps), int(delay_steps), *consts)

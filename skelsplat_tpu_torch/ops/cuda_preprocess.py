@@ -21,7 +21,6 @@ On the card a macro step is three launches over all of its views:
 On CPU tensors the same steps are plain PyTorch: ``preprocess_gaussians``
 + ``cuda_raster.slot_pack``, K1's plain version and
 ``preprocess_grad_plain``, the analytic backward with kernel B's formulas.
-Each kernel counts its launches in ``cuda_raster.launches``.
 
 Where autograd of the forward is finite, the backward follows its
 conventions: a clamp passes the gradient at its edges; ``where(det != 0,
@@ -36,11 +35,10 @@ import ctypes
 import torch
 
 from skelsplat_tpu_torch import losses as loss_registry
-from skelsplat_tpu_torch import tracing
 from skelsplat_tpu_torch.core import geometry
 from skelsplat_tpu_torch.core.gaussians import (PARAM_FIELDS,
                                                 GaussianParams)
-from skelsplat_tpu_torch.ops import cuda_raster, rasterizer
+from skelsplat_tpu_torch.ops import _build, cuda_raster, rasterizer
 
 N_GRAD = cuda_raster.N_GRAD
 
@@ -403,8 +401,6 @@ def preprocess_pack(params: GaussianParams, cameras,
     version on CPU tensors."""
     if params.xyz.device.type == "cpu":
         return preprocess_pack_plain(params, cameras, prof, A, antialiasing)
-    from skelsplat_tpu_torch.ops import _build
-
     V, N, H = prof.p1.shape
     W = prof.p2.shape[-1]
     _check(params, cameras, A, V)
@@ -417,17 +413,11 @@ def preprocess_pack(params: GaussianParams, cameras,
     order = torch.empty((V, N), dtype=torch.int32, device=dev)
     p1s, p2s = torch.empty_like(p1), torch.empty_like(p2)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    lib = _build.load_library()
-    with torch.cuda.device(dev), \
-            tracing.profiler_range("skelsplat::preprocess_pack"):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.skelsplat_preprocess_pack(
-            *(t.data_ptr() for t in ins), B.data_ptr(), spans.data_ptr(),
-            p1.data_ptr(), p2.data_ptr(), V, A, N, H, W,
-            int(antialiasing), sms, pack.data_ptr(), order.data_ptr(),
-            p1s.data_ptr(), p2s.data_ptr(), ctypes.c_void_p(stream))
-    _build.check_launch(rc, "preprocess_pack")
-    cuda_raster.launches["preprocess_pack"] += 1
+    _build.launch(
+        "preprocess_pack", dev, *(t.data_ptr() for t in ins), B.data_ptr(),
+        spans.data_ptr(), p1.data_ptr(), p2.data_ptr(), V, A, N, H, W,
+        int(antialiasing), sms, pack.data_ptr(), order.data_ptr(),
+        p1s.data_ptr(), p2s.data_ptr())
     return pack, order, p1s, p2s
 
 
@@ -441,8 +431,6 @@ def preprocess_grad(params: GaussianParams, cameras, order, S, C, dg,
         return preprocess_grad_plain(params, cameras, order, S, C, dg, A, W,
                                      H, antialiasing, limbs,
                                      lambda_consistency)
-    from skelsplat_tpu_torch.ops import _build
-
     V, N = order.shape
     _check(params, cameras, A, V)
     for name, t, dtype, shape in (("order", order, torch.int32, (V, N)),
@@ -462,20 +450,13 @@ def preprocess_grad(params: GaussianParams, cameras, order, S, C, dg,
     losses = torch.empty(V, dtype=torch.float32, device=dev)
     grads = GaussianParams(*(torch.empty((V, N, k), dtype=torch.float32,
                                          device=dev) for k in (3, 3, 4, 1)))
-    lib = _build.load_library()
-    with torch.cuda.device(dev), \
-            tracing.profiler_range("skelsplat::preprocess_grad"):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.skelsplat_preprocess_grad(
-            *(t.data_ptr() for t in ins), order.data_ptr(), S.data_ptr(),
-            C.data_ptr(), dg.data_ptr(), V, A, N, H, W, int(antialiasing),
-            int(limbs is not None), *pairs,
-            ctypes.c_float(lambda_consistency), losses.data_ptr(),
-            grads.xyz.data_ptr(), grads.log_scales.data_ptr(),
-            grads.quats.data_ptr(), grads.opacity_logit.data_ptr(),
-            ctypes.c_void_p(stream))
-    _build.check_launch(rc, "preprocess_grad")
-    cuda_raster.launches["preprocess_grad"] += 1
+    _build.launch(
+        "preprocess_grad", dev, *(t.data_ptr() for t in ins),
+        order.data_ptr(), S.data_ptr(), C.data_ptr(), dg.data_ptr(), V, A, N,
+        H, W, int(antialiasing), int(limbs is not None), *pairs,
+        ctypes.c_float(lambda_consistency), losses.data_ptr(),
+        grads.xyz.data_ptr(), grads.log_scales.data_ptr(),
+        grads.quats.data_ptr(), grads.opacity_logit.data_ptr())
     return losses, grads
 
 

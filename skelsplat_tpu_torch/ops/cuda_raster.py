@@ -20,18 +20,18 @@ of one view's list that also sums each view's partials; the live-tile
 count never reaches the host. ``run_length`` picks R from the call's
 shape; the results are bitwise the same for every R.
 
-Each wrapper launches the kernel for CUDA tensors (counting the launch in
-``launches``) and runs its plain PyTorch version, the same two passes over
-row chunks, for CPU tensors. The trainer's macro step takes dg back to the
-parameters by hand (``ops/cuda_preprocess.py``). ``fused_view_loss_cuda``
-is the same loss under autograd: ``_RasterLossFn``'s backward is dg scaled
-by the loss cotangent, and gradients reach xyz, scales, quats and opacity
-through autograd of the preprocess and the depth-order gather.
+Each wrapper launches the kernel for CUDA tensors (through
+``_build.launch``, which counts it) and runs its plain PyTorch version,
+the same two passes over row chunks, for CPU tensors. The trainer's macro
+step takes dg back to the parameters by hand (``ops/cuda_preprocess.py``).
+``fused_view_loss_cuda`` is the same loss under autograd:
+``_RasterLossFn``'s backward is dg scaled by the loss cotangent, and
+gradients reach xyz, scales, quats and opacity through autograd of the
+preprocess and the depth-order gather.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import NamedTuple
 
@@ -40,6 +40,7 @@ import torch
 from skelsplat_tpu_torch import losses as loss_registry
 from skelsplat_tpu_torch import tracing
 from skelsplat_tpu_torch.core import geometry
+from skelsplat_tpu_torch.ops import _build
 from skelsplat_tpu_torch.ops import heatmaps as hm
 from skelsplat_tpu_torch.ops import rasterizer
 
@@ -55,13 +56,13 @@ IDX_PX, IDX_PY, IDX_CA, IDX_CB, IDX_CC, IDX_OPA = range(6)
 IDX_RX0, IDX_RY0, IDX_RX1, IDX_RY1, IDX_B = 6, 7, 8, 9, 10
 IDX_GY0, IDX_GY1, IDX_GX0, IDX_GX1 = 11, 12, 13, 14
 
+# the losses the tile kernel implements (and ops/fused.py, its autograd
+# reference)
 CUDA_LOSSES = ("l2_gaussian", "l1_gaussian", "l1_masked")
 
-# kernel launches by wrapper (K1, K2, ops/cuda_preprocess.py's kernels A
-# and B, ops/compose_adam.py's kernel C); chip_smoke.py resets and reads
-# these
-launches = {"raster_loss_grad": 0, "raster_loss": 0, "preprocess_pack": 0,
-            "preprocess_grad": 0, "compose_adam": 0}
+# the hand-written kernels' launches by label: the tracing counter itself,
+# under the name benchmark/skbench/program.py reads
+launches = tracing.counters["kernel_launches"]
 
 
 class ViewProfiles(NamedTuple):
@@ -330,8 +331,6 @@ def persistent_grid(device_index: int, with_grad: bool, l1: bool,
                     n_slots: int) -> int:
     """Resident blocks of the tile kernel a call with ``n_slots`` slots
     launches, on the whole card: the grid ``run_length`` divides by."""
-    from skelsplat_tpu_torch.ops import _build
-
     per_sm = _build.occupancy(with_grad, l1, _build.slot_bound(
         n_slots, with_grad))["blocks_per_sm"]
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
@@ -342,11 +341,8 @@ def _launch(pack, p1, p2, img, l1: bool, with_grad: bool,
             run: int | None = None):
     """One call of the kernel; ``run`` forces the tile kernel's run length
     (default ``run_length`` of the call's shape)."""
-    from skelsplat_tpu_torch.ops import _build
-
     if run is not None and not 1 <= run <= MAX_RUN:
         raise ValueError(f"run length {run} outside 1..{MAX_RUN}")
-    lib = _build.load_library()
     V, N, _ = pack.shape
     H, W = p1.shape[-1], p2.shape[-1]
     n_tiles = _build.n_tiles(W, H)
@@ -370,20 +366,13 @@ def _launch(pack, p1, p2, img, l1: bool, with_grad: bool,
     C = torch.empty(V, dtype=torch.int32, device=dev)
     dg = torch.empty((V, N, N_GRAD) if with_grad else (1,),
                      dtype=torch.float32, device=dev)
-    name = "raster_loss_grad" if with_grad else "raster_loss"
-    # the range names the launches in a profiler trace (tools/trace_summary.py)
-    with torch.cuda.device(dev), tracing.profiler_range(f"skelsplat::{name}"):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.skelsplat_raster_loss(
-            pack.data_ptr(), p1.data_ptr(), p2.data_ptr(), img.data_ptr(),
-            V, N, H, W, int(l1), int(with_grad), run, live_idx.data_ptr(),
-            live_mask.data_ptr(), live_n.data_ptr(), view_done.data_ptr(),
-            part_s.data_ptr(),
-            part_c.data_ptr(), part_dg.data_ptr(), S.data_ptr(),
-            C.data_ptr(), dg.data_ptr(), ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"raster_loss kernel launch failed: "
-                           f"{_build.error_string(rc)} (cudaError {rc})")
+    _build.launch(
+        "raster_loss_grad" if with_grad else "raster_loss", dev,
+        pack.data_ptr(), p1.data_ptr(), p2.data_ptr(), img.data_ptr(),
+        V, N, H, W, int(l1), int(with_grad), run, live_idx.data_ptr(),
+        live_mask.data_ptr(), live_n.data_ptr(), view_done.data_ptr(),
+        part_s.data_ptr(), part_c.data_ptr(), part_dg.data_ptr(),
+        S.data_ptr(), C.data_ptr(), dg.data_ptr())
     if with_grad:
         tracing.count("k1_run_length", str(run))
     return S, C, (dg if with_grad else None), (live_idx, live_mask, live_n)
@@ -400,7 +389,6 @@ def _run(pack, p1, p2, img, l1: bool, with_grad: bool, return_live: bool):
     if pack.device.type != "cuda":
         raise ValueError(f"unsupported device {pack.device}")
     out = _launch(pack, p1, p2, img, l1, with_grad)
-    launches["raster_loss_grad" if with_grad else "raster_loss"] += 1
     return out if return_live else out[:3]
 
 

@@ -19,18 +19,16 @@ from torch.utils.checkpoint import checkpoint
 
 from skelsplat_tpu_torch import losses as loss_registry
 from skelsplat_tpu_torch.core.cameras import Camera
+from skelsplat_tpu_torch.ops import cuda_raster
 from skelsplat_tpu_torch.ops import heatmaps as hm
 from skelsplat_tpu_torch.ops import rasterizer
-
-# losses this path implements
-FUSED_LOSSES = ("l2_gaussian", "l1_gaussian", "l1_masked")
 
 
 def fused_view_loss_available(loss_function: str,
                               consistency_loss: str) -> bool:
-    """Whether this path implements ``loss_function`` (every consistency
-    loss is)."""
-    return loss_function in FUSED_LOSSES
+    """Whether this path implements ``loss_function``: the CUDA kernel's
+    losses (every consistency loss is)."""
+    return loss_function in cuda_raster.CUDA_LOSSES
 
 
 def _chunk_sums(pp: rasterizer.Preprocessed, spec: hm.HeatmapSpec, y0: int,

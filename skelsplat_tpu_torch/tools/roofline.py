@@ -35,7 +35,6 @@ from __future__ import annotations
 
 import argparse
 import collections
-import ctypes
 import math
 import re
 import subprocess
@@ -46,6 +45,7 @@ import torch
 
 from skelsplat_tpu_torch import resolve_device
 from skelsplat_tpu_torch.core import geometry
+from skelsplat_tpu_torch.ops import _build
 from skelsplat_tpu_torch.ops import cuda_raster as cr
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s
@@ -136,9 +136,6 @@ CHAINS = (1, 2, 4)
 PROBE_BLOCKS_PER_SM = 8
 PROBE_MS = 2.0
 
-# K3 launches by wrapper; chip_smoke.py resets and reads this
-launches = {"issue_rate": 0}
-
 
 # ---------------------------------------------------------------------------
 # K3: the issue-rate chain, kernel and plain version
@@ -209,19 +206,9 @@ def issue_rate(x, k_steps: int, chains: int, op: str):
         return issue_rate_plain(x, k_steps, chains, op)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    from skelsplat_tpu_torch.ops import _build
-
-    lib = _build.load_library()
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.skelsplat_issue_rate(
-            x.data_ptr(), out.data_ptr(), x.numel(), k_steps, chains,
-            OPS.index(op), ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"issue_rate kernel launch failed: "
-                           f"{_build.error_string(rc)} (cudaError {rc})")
-    launches["issue_rate"] += 1
+    _build.launch("issue_rate", x.device, x.data_ptr(), out.data_ptr(),
+                  x.numel(), k_steps, chains, OPS.index(op))
     return out
 
 
@@ -274,8 +261,6 @@ def exp_weight(rates: dict) -> float:
 def sass_opcodes(lib_path) -> dict:
     """{kernel symbol: Counter of SASS opcodes} of a built library, from
     ``cuobjdump -sass`` (opcode without its modifiers)."""
-    from skelsplat_tpu_torch.ops import _build
-
     tool = Path(_build._nvcc()).parent / "cuobjdump"
     out = subprocess.run([str(tool), "-sass", str(lib_path)],
                          capture_output=True, text=True, check=True,

@@ -30,9 +30,12 @@ ran for minutes (CUDA's float32 milliseconds).
 program (prepare, step, collect), ``host_syncs`` by call site (every
 synchronize, and every host copy of a device tensor, that the program
 makes itself), ``captures`` by program, ``input_bytes`` (the packed
-host inputs) and ``k1_run_length``, K1's calls by the tile kernel's run
-length (``ops/cuda_raster.py::run_length``). A unit keeps the counts made while it was open, so
-``window`` counts what the units of an interval did.
+host inputs), and two of device work (``DEVICE``): ``kernel_launches``
+by kernel label (``ops/_build.py::launch``) and ``k1_run_length``, K1's
+calls by run length. A unit keeps the counts made while it was open, so
+``window`` counts what the units of an interval did. A capture launches
+nothing, so ``capturing`` holds back its device-work counts, and each
+replay of the graph credits them (``Credit``, ``credit``).
 
 **Detail** (off by default; ``enable(detail=True)``, ``enable(False)``):
 one event pair around every graph replay, a ``skelsplat.replay.<program>``
@@ -59,7 +62,8 @@ UNITS = ("skelsplat.scene", "skelsplat.chain", "skelsplat.batch")
 LAUNCH = "skelsplat.launch"
 REPLAY = "skelsplat.replay."
 COUNTERS = ("graph_launches", "host_syncs", "captures", "input_bytes",
-            "k1_run_length")
+            "kernel_launches", "k1_run_length")
+DEVICE = frozenset(("kernel_launches", "k1_run_length"))
 CURRENT = -1    # a device interval on the current CUDA device
 
 _now = time.perf_counter_ns
@@ -74,18 +78,20 @@ class Record:
     interval once read: ``device_ms``, ``gap_ms`` (since the previous
     record of its kind ended on the device; None for the first) and
     ``at_ms`` (its device start after its device's origin event). A unit's
-    root record holds the counts made inside it (``counts``)."""
+    root record holds the counts made inside it (``counts``; while it is
+    open, replays' in ``credits``, Credit → replays)."""
 
     __slots__ = ("id", "name", "parent", "unit", "index", "t0", "t1",
                  "device", "events", "device_ms", "gap_ms", "at_ms",
-                 "counts")
+                 "counts", "credits")
 
     def __init__(self, rid, name, parent, unit, index):
         self.id, self.name, self.parent = rid, name, parent
         self.unit, self.index = unit, index
         self.t0, self.t1 = _now(), None
         self.device = self.events = None
-        self.device_ms = self.gap_ms = self.at_ms = self.counts = None
+        self.device_ms = self.gap_ms = self.at_ms = None
+        self.counts = self.credits = None
 
     @property
     def seconds(self) -> float | None:
@@ -117,6 +123,7 @@ _unit: Record | None = None
 _detail = False
 _pending: collections.deque = collections.deque()
 _clocks: dict = {}
+_held: collections.Counter | None = None   # a capture's device-work counts
 
 
 def clear(size: int = RING) -> None:
@@ -201,11 +208,18 @@ class _Unit(_Span):
         if self.outer is None:
             rec.unit = rec.id
             rec.counts = collections.Counter()
+            rec.credits = collections.Counter()
             _unit = rec
         return rec
 
     def __exit__(self, *exc):
         global _unit
+        rec = self.rec
+        if self.outer is None:
+            for credited, replays in rec.credits.items():
+                for key, n in credited.counts.items():
+                    rec.counts[key] += n * replays
+            rec.credits = None
         _unit = self.outer
         return super().__exit__(*exc)
 
@@ -290,10 +304,48 @@ def section(name: str):
 
 
 def count(counter: str, label: str, n: int = 1) -> None:
-    """Add ``n`` to ``counters[counter][label]``, and to the open unit's."""
+    """Add ``n`` to ``counters[counter][label]``, and to the open unit's;
+    inside ``capturing``, a count of device work is held back instead."""
+    if _held is not None and counter in DEVICE:
+        _held[(counter, label)] += n
+        return
     counters[counter][label] += n
     if _unit is not None:
         _unit.counts[(counter, label)] += n
+
+
+@contextlib.contextmanager
+def capturing(program: str):
+    """``with capturing(program) as held``: around the capture of
+    ``program``'s graph, the counts of device work go to ``held``, not to
+    the counters; ``captures`` counts it if it ends cleanly."""
+    global _held
+    _held = held = collections.Counter()
+    try:
+        yield held
+    finally:
+        _held = None
+    count("captures", program)
+
+
+class Credit:
+    """What one replay of ``program``'s graph counts (``counts``,
+    (counter, label) → n): its launch and the ``held`` device work."""
+
+    __slots__ = ("counts", "adds")
+
+    def __init__(self, program: str, held):
+        self.counts = {("graph_launches", program): 1, **held}
+        self.adds = tuple((counters[c], label, n)
+                          for (c, label), n in self.counts.items())
+
+
+def credit(credited: Credit) -> None:
+    """Add one replay's counts to the counters, and to the open unit's."""
+    for counter, label, n in credited.adds:
+        counter[label] += n
+    if _unit is not None:
+        _unit.credits[credited] += 1
 
 
 def synced(site: str, tensor=None) -> None:

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from skelsplat_tpu_torch import compat
-from skelsplat_tpu_torch.ops import compose_adam, cuda_raster
+from skelsplat_tpu_torch.ops import _build, compose_adam, cuda_raster
 from skelsplat_tpu_torch.synthetic import synthetic_inputs
 
 W, H = 240, 200
@@ -51,7 +51,7 @@ def packed(card, request):
 @pytest.mark.parametrize("l1", [False, True])
 def test_kernels_match_plain_versions(packed, l1):
     pack, p1s, p2s, img, dead = packed
-    before = dict(cuda_raster.launches)
+    before = _build.launch_counts()
     S, C, dg, live = cuda_raster.raster_loss_grad(pack, p1s, p2s, img, l1,
                                                   return_live=True)
     S_b, C_b, dg_b = cuda_raster.raster_loss_grad(pack, p1s, p2s, img, l1)
@@ -59,8 +59,9 @@ def test_kernels_match_plain_versions(packed, l1):
     Sp, Cp, dgp = cuda_raster.raster_loss_grad_plain(pack, p1s, p2s, img, l1)
     idx_p, mask_p, n_p = cuda_raster.live_tiles_plain(pack, H, W)
     torch.cuda.synchronize()
-    assert cuda_raster.launches["raster_loss_grad"] == before["raster_loss_grad"] + 2
-    assert cuda_raster.launches["raster_loss"] == before["raster_loss"] + 1
+    launched = _build.launch_counts(since=before)
+    assert launched["raster_loss_grad"] == 2
+    assert launched["raster_loss"] == 1
     # the kernel's live-tile list, entry for entry
     idx, mask, n = live
     assert torch.equal(n, n_p)
@@ -187,15 +188,15 @@ def test_preprocess_kernels_match_plain_versions(card, case):
     params, cams, prof, A = step_inputs(
         st, ns, w, h, device="cuda", **({special: True} if special else {}))
     limbs = cp.limb_pairs("3D_length_consistency", st)
-    before = dict(cuda_raster.launches)
+    before = _build.launch_counts()
     pack, order, p1s, p2s = cp.preprocess_pack(params, cams, prof, A, aa)
     S, C, dg = cuda_raster.raster_loss_grad(pack, p1s, p2s, prof.img, False)
     losses, grads = cp.preprocess_grad(params, cams, order, S, C, dg, A, w,
                                        h, aa, limbs, 1e-2)
     torch.cuda.synchronize()
-    assert {k: cuda_raster.launches[k] - before[k] for k in before} == {
+    assert _build.launch_counts(since=before) == {
         "raster_loss_grad": 1, "raster_loss": 0, "preprocess_pack": 1,
-        "preprocess_grad": 1, "compose_adam": 0}
+        "preprocess_grad": 1, "compose_adam": 0, "issue_rate": 0}
     for got, want in zip((pack, order, p1s, p2s),
                          cp.preprocess_pack_plain(params, cams, prof, A, aa)):
         assert got.dtype == want.dtype and torch.equal(got, want)
@@ -309,10 +310,10 @@ def test_compose_adam_matches_torch_composite(card, case, lean):
             cuda(rng.normal(0.0, 1.0, lead + (A, n, w))
                  * 10.0 ** rng.uniform(-4, 1, lead + (A, n, w)))
             for w in widths))
-        before = cuda_raster.launches["compose_adam"]
+        before = _build.launch_counts()
         ttrainer.compose_adam_step(tr.adam, st_c, losses_v, grads_v, gt,
                                    extent, lean)
-        assert cuda_raster.launches["compose_adam"] == before + 1
+        assert _build.launch_counts(since=before)["compose_adam"] == 1
         carry, rec = ttrainer.compose_macro(
             tr.adam, A, False, False, st_t.carry, st_t.step, losses_v,
             grads_v, None, gt, extent, lean=lean)
@@ -342,11 +343,11 @@ def test_kernel_c_scene_matches_torch_composite(card, lean, monkeypatch):
             monkeypatch.setattr(ttrainer, "adam_kernel_serves",
                                 lambda settings, nviews: False)
         tr = _trainer(500)
-        before = cuda_raster.launches["compose_adam"]
+        before = _build.launch_counts()
         results[route] = tr.optimize_scene(init[0], p2d[0], cams, gt[0],
                                            lean=lean)
         torch.cuda.synchronize()
-        counts[route] = cuda_raster.launches["compose_adam"] - before
+        counts[route] = _build.launch_counts(since=before)["compose_adam"]
     assert counts == {"kernel_c": 125, "torch": 0}
     (p_c, h_c), (p_t, h_t) = results["kernel_c"], results["torch"]
     _assert_same(p_c, p_t)
@@ -702,8 +703,6 @@ def test_captured_chain_matches_serial_loop(card):
     """A 3-scene chain of captured replays is bitwise the eager serial
     loop with the early-stop window carried, and its launch count is
     n_macro per scene."""
-    from skelsplat_tpu_torch.ops import cuda_raster as cr
-
     init, gt, p2d, cams_np = synthetic_inputs(3, W, H)
     cams = compat.camera_from_numpy(cams_np, device="cpu")
     kw = {"early_stopping": "opt_early_stopping"}
@@ -718,10 +717,11 @@ def test_captured_chain_matches_serial_loop(card):
     hins = [tr.host_inputs(init[s], p2d[s], cams, gt[s]) for s in range(3)]
     tr.optimize_scene_chain(hins)     # captures the graph
     torch.cuda.synchronize()
-    before = cr.launches["raster_loss_grad"]
+    before = _build.launch_counts()
     pg, hg = tr.optimize_scene_chain(hins)
     torch.cuda.synchronize()
-    assert cr.launches["raster_loss_grad"] - before == 3 * tr.n_macro
+    assert _build.launch_counts(since=before)["raster_loss_grad"] == \
+        3 * tr.n_macro
     for s, (ps, hs) in enumerate(serial):
         for f in ("xyz", "log_scales", "quats", "opacity_logit"):
             assert torch.equal(getattr(pg, f)[s], getattr(ps, f))
@@ -865,28 +865,31 @@ def test_replays_make_no_host_sync_and_count_k1(card):
     tr = _trainer(500)
     for s in range(2):
         torch.cuda.synchronize()
-        before = dict(cr.launches)
+        before = _build.launch_counts()
         tr.optimize_scene(init[s], p2d[s], cams, gt[s])
         torch.cuda.synchronize()
-        for name in ("raster_loss_grad", "preprocess_pack",
-                     "preprocess_grad", "compose_adam"):
-            assert cr.launches[name] - before[name] == 125, name
-        assert cr.launches["raster_loss"] == before["raster_loss"]
+        assert _build.launch_counts(since=before) == {
+            "raster_loss_grad": 125, "raster_loss": 0, "preprocess_pack": 125,
+            "preprocess_grad": 125, "compose_adam": 125, "issue_rate": 0}
     graph = next(iter(tr.graphs.values()))
-    assert graph.launches == {"raster_loss_grad": 1, "raster_loss": 0,
-                              "preprocess_pack": 1, "preprocess_grad": 1,
-                              "compose_adam": 1}
     R = cr.run_length(4, -(-W // 16) * -(-H // 16), cr.persistent_grid(
         torch.cuda.current_device(), True, False, 17))
-    assert graph.run_lengths == {str(R): 1}
+    # what one replay counts: its graph launch, one launch of K1 and of
+    # kernels A, B and C, and one K1 call at run length R
+    assert graph.step_program.credit.counts == {
+        ("graph_launches", "step"): 1,
+        ("kernel_launches", "raster_loss_grad"): 1,
+        ("kernel_launches", "preprocess_pack"): 1,
+        ("kernel_launches", "preprocess_grad"): 1,
+        ("kernel_launches", "compose_adam"): 1, ("k1_run_length", str(R)): 1}
     graph.state.step.zero_()     # 20 more steps from the first
     torch.cuda.synchronize()
-    before = dict(cr.launches)
+    before = _build.launch_counts()
     assert _count_syncs(lambda: [graph.step() for _ in range(20)]) == 0
     torch.cuda.synchronize()
-    for name in ("raster_loss_grad", "preprocess_pack", "preprocess_grad",
-                 "compose_adam"):
-        assert cr.launches[name] == before[name] + 20, name
+    assert _build.launch_counts(since=before) == {
+        "raster_loss_grad": 20, "raster_loss": 0, "preprocess_pack": 20,
+        "preprocess_grad": 20, "compose_adam": 20, "issue_rate": 0}
 
 
 @pytest.mark.cuda
@@ -915,7 +918,7 @@ def test_warm_chain_counts_its_graph_launches_and_device_intervals(card):
     wins, results = {}, {}
     for detail in (False, True):
         tracing.enable(detail)
-        before = dict(cr.launches)
+        before = _build.launch_counts()
         try:
             t0 = time.perf_counter()
             results[detail] = tr.optimize_scene_chain(hins)
@@ -923,10 +926,10 @@ def test_warm_chain_counts_its_graph_launches_and_device_intervals(card):
             t1 = time.perf_counter()
         finally:
             tracing.enable(False)
-        assert {k: cr.launches[k] - before[k] for k in before} == {
+        assert _build.launch_counts(since=before) == {
             "raster_loss_grad": 250, "raster_loss": 0,
             "preprocess_pack": 250, "preprocess_grad": 250,
-            "compose_adam": 250}
+            "compose_adam": 250, "issue_rate": 0}
         wins[detail] = win = tracing.window(t0, t1)
         assert win["units"] == 1 and not win["wrapped"]
         assert win["counters"]["graph_launches"] == 2 * 127
@@ -1090,11 +1093,11 @@ def test_issue_rate_kernel_matches_plain_version(card, op):
     x = torch.as_tensor(np.random.default_rng(1).uniform(0, 1, 3 * 256 + 17),
                         dtype=torch.float32, device="cuda")
     for chains in roofline.CHAINS:
-        before = roofline.launches["issue_rate"]
+        before = _build.launch_counts()
         got = roofline.issue_rate(x, 128, chains, op)
         ref = roofline.issue_rate_plain(x, 128, chains, op)
         torch.cuda.synchronize()
-        assert roofline.launches["issue_rate"] == before + 1
+        assert _build.launch_counts(since=before)["issue_rate"] == 1
         assert bool(torch.isfinite(got).all())
         assert torch.equal(got, ref), (op, chains)
 

@@ -14,7 +14,7 @@ from skelsplat_tpu.engine.trainer import init_params_jnp
 from skelsplat_tpu.ops import fused, heatmaps, rasterizer
 from skelsplat_tpu.ops.pallas_raster import fused_view_loss_pallas
 from skelsplat_tpu_torch import compat
-from skelsplat_tpu_torch.ops import cuda_raster
+from skelsplat_tpu_torch.ops import _build, cuda_raster
 from skelsplat_tpu_torch.ops import fused as tfused
 from skelsplat_tpu_torch.ops import heatmaps as thm
 from skelsplat_tpu_torch.ops import rasterizer as trast
@@ -177,9 +177,10 @@ def test_plain_k2_equals_plain_k1_pass1(scene, l1):
 
 def test_plain_kernel_counts_no_launch_on_cpu(scene):
     pack, p1s, p2s, img = _packed_inputs(scene)
-    before = dict(cuda_raster.launches)
+    before = _build.launch_counts()
     cuda_raster.raster_loss_grad(pack, p1s, p2s, img, False)
-    assert cuda_raster.launches == before
+    assert _build.launch_counts(since=before) == dict.fromkeys(
+        _build.KERNELS, 0)
 
 
 def test_kernel_wrapper_rejects_bad_inputs(scene):

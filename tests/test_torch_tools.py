@@ -19,6 +19,7 @@ from skelsplat_tpu.ops import heatmaps, rasterizer
 from skelsplat_tpu.ops.pallas_raster import pallas_view_profiles
 from skelsplat_tpu.tools import trace_summary as jts
 from skelsplat_tpu_torch import compat
+from skelsplat_tpu_torch.ops import _build
 from skelsplat_tpu_torch.ops import cuda_raster as cr
 from skelsplat_tpu_torch.ops import heatmaps as thm
 from skelsplat_tpu_torch.ops import rasterizer as trast
@@ -88,9 +89,11 @@ def test_issue_rate_plain_matches_jax_chain(op, chains):
     with jax.disable_jit():
         ref = np.asarray(_jax_chain(jnp.asarray(x), 64, chains, op))
     tx = torch.as_tensor(x.reshape(-1))
-    before = dict(roofline.launches)
+    before = _build.launch_counts()
     got = roofline.issue_rate(tx, 64, chains, op).numpy().reshape(8, 128)
-    assert roofline.launches == before      # the CPU runs the plain version
+    # the CPU runs the plain version
+    assert _build.launch_counts(since=before) == dict.fromkeys(
+        _build.KERNELS, 0)
     assert np.isfinite(got).all()
     np.testing.assert_array_equal(got, ref)
     if op == "exp":

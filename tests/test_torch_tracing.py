@@ -171,6 +171,48 @@ def test_window_flags_records_the_ring_dropped():
     assert tracing.counters["graph_launches"]["step"] == 8
 
 
+def test_device_work_held_in_a_capture_counts_once_a_replay():
+    """A fake capture: the counts of device work made inside
+    ``tracing.capturing`` (kernel launches, K1 calls by run length) reach
+    neither the counters nor the unit; crediting the replay's record 3
+    times counts each 3 times, with 3 graph launches; the host counts
+    made meanwhile (the capture's sync, ``captures``) count once. Every
+    kernel reads 0 until it launches."""
+    from skelsplat_tpu_torch.ops import _build, cuda_raster
+
+    assert cuda_raster.launches is tracing.counters["kernel_launches"]
+    assert _build.launch_counts() == dict.fromkeys(_build.KERNELS, 0)
+    with tracing.unit("skelsplat.scene") as unit:
+        with tracing.capturing("step") as held:
+            tracing.count("kernel_launches", "raster_loss_grad")
+            tracing.count("kernel_launches", "compose_adam", 2)
+            tracing.count("k1_run_length", "7")
+            tracing.synced("graphs.capture")
+        replay = tracing.Credit("step", held)
+        assert replay.counts == {
+            ("graph_launches", "step"): 1,
+            ("kernel_launches", "raster_loss_grad"): 1,
+            ("kernel_launches", "compose_adam"): 2, ("k1_run_length", "7"): 1}
+        assert not tracing.counters["kernel_launches"]
+        assert not tracing.counters["k1_run_length"]
+        for _ in range(3):
+            tracing.credit(replay)
+    tracing.count("kernel_launches", "raster_loss")    # outside: at once
+    assert _build.launch_counts() == {
+        "raster_loss_grad": 3, "raster_loss": 1, "preprocess_pack": 0,
+        "preprocess_grad": 0, "compose_adam": 6, "issue_rate": 0}
+    assert tracing.counters["k1_run_length"] == {"7": 3}
+    assert tracing.counters["graph_launches"] == {"step": 3}
+    assert tracing.counters["host_syncs"] == {"graphs.capture": 1}
+    assert tracing.counters["captures"] == {"step": 1}
+    assert unit.counts == {("kernel_launches", "raster_loss_grad"): 3,
+                           ("kernel_launches", "compose_adam"): 6,
+                           ("k1_run_length", "7"): 3,
+                           ("graph_launches", "step"): 3,
+                           ("host_syncs", "graphs.capture"): 1,
+                           ("captures", "step"): 1}
+
+
 def test_export_writes_chrome_trace_json(scenes, tmp_path):
     _calls(_trainer(), scenes)
     path = tracing.export(str(tmp_path / "sub" / "trace.json"))
