@@ -23,7 +23,7 @@
 //     with no live tile gets S = C = dg = 0 here. A dead tile costs one AND
 //     of two masks, and the count of live tiles never reaches the host.
 //   * raster_loss_live runs a persistent grid (the resident blocks of every
-//     SM, 3 of 256 threads each) over runs of R consecutive entries of one
+//     SM, 4 of 256 threads each) over runs of R consecutive entries of one
 //     view's list (the last run of a view may be shorter; R comes from the
 //     host, ops/cuda_raster.py::run_length, by the call's shape alone). One
 //     thread per pixel of the 16x16 tile (the reference's tile, so the rect
@@ -32,13 +32,16 @@
 //     entry, the 16 rows of p1 and 16 columns of p2 of each flagged slot
 //     arrive by cp.async in a ring of STAGES buffers, the next entry's
 //     rows in flight while the block computes the current one. The block
-//     walks the slots front to back (pass 1: S, C, and per render slot its
-//     T and live alpha, in registers sized by a compile-time slot bound NS
-//     from N) and back to front (pass 2: the gradient, recomputing gt, the
-//     mask and slot_alpha, each slot's six components folded across the
-//     warp in 8 shuffles). Each entry writes its S and C at its list
-//     position and, per slot whose rect covers it, the six dg components at
-//     the tile's position in the slot's rect. A run takes one ticket of its
+//     walks only the slots the entry's mask flags: front to back over its
+//     render and GT slots (pass 1: S, C, and per render slot the T before
+//     it and its live alpha, kept in per-thread arrays by the slot's
+//     ordinal among the entry's render slots), then back to front over its
+//     render slots (pass 2: the gradient, recomputing gt, the mask and
+//     slot_alpha, each slot's six components folded across the warp in 8
+//     shuffles).
+//     Each entry writes its S and C at its list position and, per slot
+//     whose rect covers it, the six dg components at the tile's position
+//     in the slot's rect. A run takes one ticket of its
 //     view (a per-view counter of finished runs in the call's own buffers,
 //     zeroed by live_tiles, one fence and one atomic a run); the block
 //     that takes a view's last ticket sums the view: S and C over its list
@@ -61,9 +64,23 @@
 // entry at a time; and, in a call with few entries a block, the run's
 // first round trips and the view's sum at the end.
 //
-// The tile kernel is held to 3 resident blocks per SM (80 registers): one
-// block (141 registers) was 1.9x slower live, 2 were 1.2x slower and 4
-// tied 3 with twice the spill (PERF.md, section 6).
+// Why the walk is over flagged slots: a live tile flags ~1.4-1.6 of the N
+// slots (render or GT) and ~0.8-1 render slot, at most 7, and a third of
+// the entries flag no render slot at all (the cells' calls,
+// tools/k1_variants.py --slots). A walk that tested every slot of a
+// compile-time bound, in code unrolled over it, spent its time on the
+// slots it skipped. The loops over the mask's set bits (ascending for
+// pass 1, descending for pass 2) cost per flagged slot and keep each
+// slot's arithmetic and the order of every sum, so the results are the
+// bits of a walk over all N; a tile that flags all N walks all N. The
+// per-slot T and alpha sit in local memory (indexed by a run-time
+// ordinal), which was faster than shared memory and than recomputing the
+// alpha in pass 2.
+//
+// The tile kernel is held to 4 resident blocks per SM (64 registers): with
+// the walk's loops no longer unrolled, 4 blocks took the batch's call 11%
+// below 3 (80 registers) and the chains' within 1%; 5 (48 registers) lost
+// 6% at H36M's call (PERF.md, section 6).
 #include <cuda_runtime.h>
 
 #include "raster_math.cuh"
@@ -72,12 +89,14 @@ namespace skelsplat {
 
 constexpr int THREADS = TILE * TILE;  // one thread per pixel of the tile
 constexpr int WARPS = THREADS / 32;
-constexpr int MIN_BLOCKS = 3;         // resident tile-kernel blocks per SM
+constexpr int MIN_BLOCKS = 4;         // resident tile-kernel blocks per SM
 constexpr int LIST_THREADS = 1024;    // live_tiles: one block per view
 constexpr int MAX_RUN = 64;           // longest run of list entries a block takes
 constexpr int STAGES = 2;             // entries whose profile rows are staged at once
 constexpr int GT_BIT = 32;            // mask bit GT_BIT + i: slot i's GT support
 constexpr unsigned FULL = 0xffffffffu;
+static_assert(MAX_SLOTS * N_GRAD <= THREADS,
+              "an entry's dg partials take one pass of the block");
 
 typedef unsigned long long Mask;
 
@@ -338,12 +357,20 @@ __device__ int load_window(int w0, int V, int R, const int* live_n, int* s_n,
   return s_cum[THREADS - 1];
 }
 
+// Position of the k-th set bit (from 0, ascending) of m, which has more
+// than k set bits.
+__device__ __forceinline__ int nth_bit(unsigned m, int k) {
+  for (; k > 0; --k) m &= m - 1u;
+  return __ffs(m) - 1;
+}
+
 // The profile rows of run entry j (list record s_tile[j], s_mask[j]) into
 // ring buffer `stage`: for each slot the entry flags, its 16 rows of p1
-// and 16 columns of p2 (0 past the grid's edge).
+// and 16 columns of p2 (0 past the grid's edge), thread q copying row
+// q % 16 of the (q / 16)-th flagged slot.
 template <int NS>
-__device__ __forceinline__ void stage_rows(int j, int stage, int N, int H,
-                                           int W, int n_tx, const int* s_tile,
+__device__ __forceinline__ void stage_rows(int j, int stage, int H, int W,
+                                           int n_tx, const int* s_tile,
                                            const Mask* s_mask,
                                            const float* p1v, const float* p2v,
                                            float (*s_p1)[NS * TILE],
@@ -352,15 +379,13 @@ __device__ __forceinline__ void stage_rows(int j, int stage, int N, int H,
   const Mask mask = s_mask[j];
   const unsigned work = (unsigned)(mask | (mask >> GT_BIT));
   const int by = tile / n_tx, bx = tile - by * n_tx;
-  for (int q = threadIdx.x; q < N * TILE; q += THREADS) {
-    const int i = q / TILE, o = q % TILE;
-    if ((work >> i) & 1u) {
-      const int yy = by * TILE + o, xx = bx * TILE + o;
-      copy_async(&s_p1[stage][q], p1v + (size_t)i * H + min(yy, H - 1),
-                 yy < H);
-      copy_async(&s_p2[stage][q], p2v + (size_t)i * W + min(xx, W - 1),
-                 xx < W);
-    }
+  for (int q = threadIdx.x; q < __popc(work) * TILE; q += THREADS) {
+    const int i = nth_bit(work, q / TILE), o = q % TILE;
+    const int yy = by * TILE + o, xx = bx * TILE + o;
+    copy_async(&s_p1[stage][i * TILE + o], p1v + (size_t)i * H + min(yy, H - 1),
+               yy < H);
+    copy_async(&s_p2[stage][i * TILE + o], p2v + (size_t)i * W + min(xx, W - 1),
+               xx < W);
   }
 }
 
@@ -431,7 +456,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 #pragma unroll
     for (int j = 0; j < STAGES - 1; ++j) {
       if (j < n_run)
-        stage_rows<NS>(j, j, N, H, W, n_tx, s_tile, s_mask, p1v, p2v, s_p1,
+        stage_rows<NS>(j, j, H, W, n_tx, s_tile, s_mask, p1v, p2v, s_p1,
                        s_p2);
       copy_async_commit();
     }
@@ -439,7 +464,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     for (int j = 0; j < n_run; ++j) {
       const int jn = j + STAGES - 1;
       if (jn < n_run)
-        stage_rows<NS>(jn, jn % STAGES, N, H, W, n_tx, s_tile, s_mask, p1v,
+        stage_rows<NS>(jn, jn % STAGES, H, W, n_tx, s_tile, s_mask, p1v,
                        p2v, s_p1, s_p2);
       copy_async_commit();
       copy_async_wait<STAGES - 1>();
@@ -458,22 +483,25 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
       const float xf = (float)x, yf = (float)y;
       const bool in_img = in_grid && xf < img_w && yf < img_h;
 
-      // pass 1: front to back
+      // the entry's flagged slots: render bits, and render or GT bits
+      const unsigned rend = (unsigned)mask;
+      const unsigned work = rend | (unsigned)(mask >> GT_BIT);
+
+      // pass 1: front to back over the flagged slots
       float T = 1.f;  // T == 0 encodes the T_MIN early-out
       float S_acc = 0.f;
       int C_acc = 0;
-      // per render slot: T before it and its live-masked alpha
-      constexpr int NA = WITH_GRAD ? NS : 1;
+      // per render slot, by its ordinal among the entry's render slots: T
+      // before it and its live-masked alpha
+      constexpr int NA = WITH_GRAD ? MAX_SLOTS : 1;
       float Tv[NA], Av[NA];
-#pragma unroll
-      for (int i = 0; i < NS; ++i) {
-        if (i >= N) break;
-        const bool rend = (mask >> i) & 1ull;
-        if (!rend && !((mask >> (GT_BIT + i)) & 1ull)) continue;
+      int nr = 0;
+      for (unsigned f = work; f != 0u; f &= f - 1u) {
+        const int i = __ffs(f) - 1;
         const float* s = &s_pack[i * PACK];
         const float gt =
             in_grid ? q1[i * TILE + ty] * q2[i * TILE + tx] + s[IDX_B] : 0.f;
-        if (rend) {
+        if ((rend >> i) & 1u) {
           const SlotEval ev = slot_alpha(s, xf, yf);
           const bool gate = ev.power <= 0.f && ev.alpha >= ALPHA_MIN;
           const float a_i = gate ? ev.alpha : 0.f;
@@ -488,8 +516,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
             C_acc += 1;
           }
           if constexpr (WITH_GRAD) {
-            Tv[i] = T;
-            Av[i] = live ? a_i : 0.f;
+            Tv[nr] = T;
+            Av[nr++] = live ? a_i : 0.f;
           }
           if (gate) T = ge ? test : 0.f;
         } else if (gt > 0.f && in_img) {  // GT-only terms of a slot off this tile
@@ -507,19 +535,17 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
       }
 
       if constexpr (WITH_GRAD) {
-        // pass 2: back to front; sfx = sum over later slots of alpha*T*ghat
+        // pass 2: back to front over the render slots; sfx = sum over later
+        // slots of alpha*T*ghat
         float sfx = 0.f;
-#pragma unroll
-        for (int jj = 0; jj < NS; ++jj) {
-          const int i = NS - 1 - jj;
-          if (i >= N || !((mask >> i) & 1ull)) continue;
+        for (unsigned f = rend; f != 0u;) {
+          const int i = 31 - __clz(f);
+          f ^= 1u << i;
           const float* s = &s_pack[i * PACK];
-          const float T_i = Tv[i];
-          // pass 2 recomputes gt, the mask and slot_alpha (keeping them
-          // from pass 1 costs registers and was no faster, PERF.md
-          // section 6)
-          const float a_i = Av[i];
+          --nr;
+          const float T_i = Tv[nr], a_i = Av[nr];
           const bool live = a_i > 0.f;
+          // pass 2 recomputes gt, the mask and slot_alpha
           const float r = fminf(fmaxf(a_i * T_i, 0.f), 1.f);
           const float gt =
               in_grid ? q1[i * TILE + ty] * q2[i * TILE + tx] + s[IDX_B]
@@ -549,6 +575,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 
       // the entry's partials: S and C at its list position, each render
       // slot's six dg components at the tile's position in the slot's rect
+      // (thread q: component q % 6 of the (q / 6)-th render slot)
       if (threadIdx.x == 0) {
         float Sb = 0.f;
         int Cb = 0;
@@ -560,9 +587,9 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
         part_c[e] = Cb;
       }
       if constexpr (WITH_GRAD) {
-        for (int q = threadIdx.x; q < N * N_GRAD; q += THREADS) {
-          const int i = q / N_GRAD, c = q % N_GRAD;
-          if (!((mask >> i) & 1ull)) continue;
+        const int q = threadIdx.x;
+        if (q < __popc(rend) * N_GRAD) {
+          const int i = nth_bit(rend, q / N_GRAD), c = q % N_GRAD;
           const RectSpan rs = rect_span(&s_pack[i * PACK], n_tx, n_ty);
           const int pos = (by - rs.y0) * rs.w + (bx - rs.x0);
           float acc = 0.f;
@@ -593,7 +620,8 @@ typedef void (*TileKernel)(const float*, const float*, const float*,
                            const int*, const Mask*, const int*, unsigned*,
                            float*, int*, float*, float*, int*, float*);
 
-// K1 sizes its per-slot registers by a slot bound from N; K2 keeps none.
+// K1 sizes its shared slot records, profile rows and dg partials by a slot
+// bound from N; K2 takes the largest.
 int slot_bound(int N, bool with_grad) {
   if (!with_grad || N > 24) return MAX_SLOTS;
   return N > 16 ? 24 : 16;

@@ -21,7 +21,8 @@ constexpr int IDX_GY0 = 11, IDX_GY1 = 12, IDX_GX0 = 13, IDX_GX1 = 14;
 constexpr int N_GRAD = 6;
 
 constexpr int TILE = 16;        // reference rasterizer BLOCK_X = BLOCK_Y
-constexpr int MAX_SLOTS = 32;   // per-slot alpha and T live in registers
+constexpr int MAX_SLOTS = 32;   // a tile's 64-bit mask: a render and a GT
+                                // bit per slot
 
 // The reference compares f32 values against Python doubles rounded to f32.
 constexpr float ALPHA_MAX = (float)0.99;

@@ -49,8 +49,7 @@ from skelsplat_tpu_torch.ops import rasterizer
 #  GT support rows gy0, gy1 and columns gx0, gx1 (pixels) | unused]
 PACK = 16
 N_GRAD = 6           # px, py, conic a, b, c, opa
-MAX_SLOTS = 32       # the kernel keeps per-slot values in registers and
-                     # a tile's slots in one 64-bit mask
+MAX_SLOTS = 32       # the kernel keeps a tile's slots in one 64-bit mask
 MAX_RUN = 64         # the tile kernel's longest run of list entries
 IDX_PX, IDX_PY, IDX_CA, IDX_CB, IDX_CC, IDX_OPA = range(6)
 IDX_RX0, IDX_RY0, IDX_RX1, IDX_RY1, IDX_B = 6, 7, 8, 9, 10
@@ -318,11 +317,14 @@ def run_length(V: int, n_tiles: int, grid: int) -> int:
 
 
 # (tiles a block covers below which, R), measured at the benchmark's
-# calls on the H100's 396 resident blocks: 4 × 1002×1000 (40 tiles a
-# block, ~1.7 live), 4 × 1920×1080 (82, ~5.5 live) and 512 × 1920×1080
-# (10,550, ~800 live). The chains take the shortest runs that still give
-# each block at most one (a second round of runs costs more than a longer
-# run); the batch's runs stop gaining past ~48 entries.
+# calls on the H100's 396 resident blocks of a tile kernel that tested
+# every slot: 4 × 1002×1000 (40 tiles a block, ~1.7 live), 4 × 1920×1080
+# (82, ~5.5 live) and 512 × 1920×1080 (10,550, ~800 live). The chains take
+# the shortest runs that still give each block at most one (a second round
+# of runs costs more than a longer run); the batch's runs stop gaining past
+# ~48 entries. The kernel that walks the flagged slots alone has 528
+# blocks, so the same calls cover 30, 62 and 7,913 tiles a block and take
+# the same R.
 RUN_TABLE = ((60, 2), (1000, 7), (float("inf"), 48))
 
 

@@ -17,6 +17,14 @@ commit (``git show <commit>:skelsplat_tpu_torch/csrc/raster_loss.cu >
 build/k1_before.cu``). A source whose C entry point takes no run length
 is timed once a call shape.
 
+Each build's tile kernel (K1, l2, at the cells' slot bound) is reported
+with its registers, local (spill and array) bytes a thread and resident
+blocks per SM.
+
+``--slots`` prints, in place of any timing and without a card, how many
+slots the live list entries of each cell's call flag (``slot_counts``),
+from the inputs made on the CPU: the length of K1's slot walk.
+
 ``--split FILE`` adds FILE as build ``before`` and the entry split of its
 tile kernel, FILE being the kernel that takes one list entry at a time
 (before runs of entries): each variant takes one part of an entry's fixed
@@ -33,7 +41,7 @@ cost away, so its outputs differ:
 Usage, on a machine with an H100:
     python -m skelsplat_tpu_torch.tools.k1_variants [--cells NAME ...]
         [--runs R ...] [--build NAME=FILE ...] [--split FILE] [--seed S]
-        [--out FILE]
+        [--out FILE] [--slots]
 """
 
 from __future__ import annotations
@@ -191,6 +199,72 @@ def cell_inputs(width: int, height: int, n_joints: int, scenes: int,
     return tuple(torch.cat(xs).contiguous() for xs in zip(*parts))
 
 
+def slot_counts(pack, H: int, W: int) -> dict:
+    """Histograms over the live list entries of K1's call on ``pack``
+    (``cuda_raster.live_tiles_plain``): ``flagged[k]`` entries flag k slots
+    (render or GT), ``render[k]`` entries flag k render slots; with the
+    entries and the share of them that flag no render slot."""
+    _, mask, live_n = cr.live_tiles_plain(pack, H, W)
+    N = pack.shape[1]
+    live = torch.arange(mask.shape[1], device=mask.device) < live_n[:, None]
+    m = mask[live]
+    rend = m & 0xFFFFFFFF
+    bit = torch.arange(N, device=m.device)
+
+    def hist(x):  # entries by the count of slot bits 0..N-1 set in x
+        n = ((x[:, None] >> bit) & 1).sum(dim=1)
+        return torch.bincount(n, minlength=N + 1).tolist()
+
+    entries = int(live_n.sum())
+    render = hist(rend)
+    return {"entries": entries, "flagged": hist(rend | (m >> 32)),
+            "render": render,
+            "no_render_share": render[0] / entries if entries else 0.0}
+
+
+def _summary(hist) -> str:
+    total = sum(hist)
+    mean = sum(k * c for k, c in enumerate(hist)) / max(total, 1)
+    top = max((k for k, c in enumerate(hist) if c), default=0)
+    return f"mean {mean:.3f}, max {top}"
+
+
+def cell_slots(cell, seed: int) -> dict:
+    """``slot_counts`` of a cell's call, summed scene by scene, from inputs
+    made on the CPU."""
+    name, w, h, n, scenes = cell
+    out = {"cell": name, "views": 4 * scenes, "entries": 0,
+           "flagged": [0] * (n + 1), "render": [0] * (n + 1)}
+    for s in range(scenes):
+        c = slot_counts(cell_inputs(w, h, n, 1, seed + s, device="cpu")[0],
+                        h, w)
+        out["entries"] += c["entries"]
+        for key in ("flagged", "render"):
+            out[key] = [a + b for a, b in zip(out[key], c[key])]
+    out["no_render_share"] = out["render"][0] / max(out["entries"], 1)
+    print(f"{name}: {out['entries'] / out['views']:.1f} entries a view; "
+          f"slots flagged an entry {_summary(out['flagged'])}; render slots "
+          f"{_summary(out['render'])}; {out['no_render_share']:.3f} of "
+          f"entries with no render slot; flagged {out['flagged']}, render "
+          f"{out['render']}", flush=True)
+    return out
+
+
+def occupancy(so: Path, n_slots: int) -> dict:
+    """Registers, local bytes a thread and resident blocks per SM of the K1
+    (l2) tile kernel that library ``so`` launches for ``n_slots`` slots."""
+    lib = ctypes.CDLL(str(so))
+    for name in ("skelsplat_raster_loss_slot_bound",
+                 "skelsplat_raster_loss_occupancy"):
+        getattr(lib, name).argtypes = _build.ENTRIES[name]
+    ns = lib.skelsplat_raster_loss_slot_bound(n_slots, 1)
+    out = (ctypes.c_int * 3)()
+    _build.check_launch(lib.skelsplat_raster_loss_occupancy(
+        1, 0, ns, ctypes.addressof(out)), "K1 occupancy")
+    return {"slot_bound": ns, "registers": out[0], "local_bytes": out[1],
+            "blocks_per_sm": out[2]}
+
+
 def _same(a, b) -> bool:
     return all(torch.equal(p, q) for p, q in zip(a, b))
 
@@ -262,7 +336,15 @@ def main(argv=None) -> dict:
                     help="the single-entry kernel to split")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", help="also write the result here as JSON")
+    ap.add_argument("--slots", action="store_true",
+                    help="print the slots each cell's list entries flag "
+                         "instead (on the CPU)")
     args = ap.parse_args(argv)
+    if args.slots:
+        out = {"slots": [cell_slots(cell, args.seed) for cell in CELLS
+                         if cell[0] in args.cells]}
+        print(json.dumps(out), flush=True)
+        return out
     resolve_device("cuda")
     from skelsplat_tpu_torch.tools.timing import card_line
 
@@ -275,8 +357,16 @@ def main(argv=None) -> dict:
     with ThreadPoolExecutor(len(srcs)) as ex:
         sos = dict(zip(srcs, ex.map(build, srcs, srcs.values())))
     libs = {b: (sos[b], takes_run(srcs[b])) for b in srcs}
-    out = {"card": card_line(), "rows": []}
+    out = {"card": card_line(), "rows": [], "occupancy": {}}
     print(f"card: {out['card']}; builds {list(libs)}", flush=True)
+    for b, (so, _) in libs.items():
+        for n in sorted({cell[3] for cell in CELLS}):
+            occ = occupancy(so, n)
+            out["occupancy"][f"{b}.n{n}"] = occ
+            print(f"{b}, {n} slots: slot bound {occ['slot_bound']}, "
+                  f"{occ['registers']} registers, {occ['local_bytes']} local "
+                  f"bytes a thread, {occ['blocks_per_sm']} resident blocks "
+                  f"per SM", flush=True)
     for cell in CELLS:
         if cell[0] in args.cells:
             out["rows"] += measure_cell(cell, libs, args.runs, args.seed)

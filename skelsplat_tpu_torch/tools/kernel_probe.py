@@ -50,14 +50,17 @@ W, H, N_JOINTS, N_VIEWS = 1002, 1000, 17, 4
 def probe_inputs(width: int = W, height: int = H, n_joints: int = N_JOINTS,
                  n_views: int = N_VIEWS, seed: int = 0, device="cuda",
                  widths=None, behind_camera: bool = False,
-                 perturb: bool = False, ring: float = 4200.0):
+                 perturb: bool = False, ring: float = 4200.0,
+                 one_point: bool = False):
     """(pack (V,N,16), p1 (V,N,H), p2 (V,N,W), img (V,2)) of frame 0 of the
     synthetic scenes from ``seed`` at its initial parameters, depth-sorted
     and packed as ``fused_view_loss_cuda`` packs them for K1. ``widths``
     gives each view its true image width (``width`` is the grid's);
     ``behind_camera`` moves joint 4 behind camera 0, which culls it there;
     ``perturb`` draws anisotropic scales and rotations from ``seed`` + 1;
-    ``ring`` is the rig's camera distance (``synthetic_inputs``)."""
+    ``ring`` is the rig's camera distance (``synthetic_inputs``);
+    ``one_point`` puts every joint at the pose's mean (the GT stays the
+    drawn pose's), so the splats overlap and some tiles flag every slot."""
     from skelsplat_tpu_torch import compat
     from skelsplat_tpu_torch.core.gaussians import init_params
     from skelsplat_tpu_torch.ops import heatmaps, rasterizer
@@ -69,6 +72,8 @@ def probe_inputs(width: int = W, height: int = H, n_joints: int = N_JOINTS,
                                              n_joints=n_joints, seed=seed,
                                              widths=widths, ring=ring)
     pose = init[0].copy()
+    if one_point:
+        pose[:] = pose.mean(axis=0)
     if behind_camera:
         c = cams_np["cam_center"][0].astype(np.float64)
         away = c - pose.mean(axis=0)

@@ -86,14 +86,21 @@ def test_kernels_match_plain_versions(packed, l1):
     assert ((dg[live_views] - dgp[live_views]).abs() / scale).max().item() <= 1e-5
 
 
-# K1 for every run length: (W, H, joints, widths, short lists) at each
-# cell's frame size and a small ragged 19-joint rig; with short lists,
-# view 0 keeps one slot (a list shorter than the longest runs) and view 1
-# none
-RUN_CASES = {"h36m": (1002, 1000, 17, None, False),
-             "panoptic": (1920, 1080, 19, None, False),
-             "n19_ragged": (W, H, 19, WIDTHS, False),
-             "short_lists": (1002, 1000, 17, None, True)}
+# K1 for every run length: (W, H, joints, widths, kind) at each cell's
+# frame size and a small ragged 19-joint rig. Kinds: "short" lists, view 0
+# keeping one slot (a list shorter than the longest runs) and view 1 none;
+# "one_point", every joint at one point, so that some tiles flag every slot
+# (N = 15, 19 and 25: slot bounds 16, 24 and 32); "gt_only", view 2's
+# splats at zero opacity, so that its tiles flag GT slots alone. The last
+# two are also held to the plain version.
+RUN_CASES = {"h36m": (1002, 1000, 17, None, None),
+             "panoptic": (1920, 1080, 19, None, None),
+             "n19_ragged": (W, H, 19, WIDTHS, None),
+             "short_lists": (1002, 1000, 17, None, "short"),
+             "one_point_n15": (1002, 1000, 15, None, "one_point"),
+             "one_point_n19": (1002, 1000, 19, None, "one_point"),
+             "one_point_n25": (1002, 1000, 25, None, "one_point"),
+             "gt_only": (1002, 1000, 17, None, "gt_only")}
 RUNS = (1, 2, 4, 8, 32, cuda_raster.MAX_RUN)
 
 
@@ -110,12 +117,16 @@ def test_k1_is_bitwise_across_run_lengths(card, case):
     (their lengths are not multiples of R)."""
     from skelsplat_tpu_torch.tools import kernel_probe
 
-    w, h, n, widths, short = RUN_CASES[case]
+    w, h, n, widths, kind = RUN_CASES[case]
     pack, p1s, p2s, img = kernel_probe.probe_inputs(
-        w, h, n_joints=n, widths=widths, perturb=True, device="cuda")
-    if short:
+        w, h, n_joints=n, widths=widths, perturb=True,
+        one_point=kind == "one_point", device="cuda")
+    if kind == "short":
         pack, p1s = kernel_probe.keep_slots(pack, p1s, 1, views=[0])
         pack, p1s = kernel_probe.keep_slots(pack, p1s, 0, views=[1])
+    if kind == "gt_only":
+        pack = pack.clone()
+        pack[2, :, cuda_raster.IDX_OPA] = 0.0
     outs = {R: cuda_raster._launch(pack, p1s, p2s, img, False, True, run=R)
             for R in RUNS}
     k2 = {R: cuda_raster._launch(pack, p1s, p2s, img, False, False, run=R)
@@ -130,12 +141,27 @@ def test_k1_is_bitwise_across_run_lengths(card, case):
     assert _same(default, ref)
     for R, out in k2.items():
         assert _same(out[:2], ref[:2]), R
-    if short:
+    if kind == "short":
         assert 0 < live_n[0] < 32 and live_n[1] == 0, live_n
         assert float(ref[0][1]) == 0.0 and int(ref[1][1]) == 0
         assert float(ref[2][1].abs().max()) == 0.0
     else:
         assert min(live_n) > 0, live_n
+    if kind in ("one_point", "gt_only"):
+        mask = outs[1][3][1]
+        rend = [mask[v, :L] & 0xFFFFFFFF for v, L in enumerate(live_n)]
+        if kind == "one_point":  # some tile flags every slot for render
+            assert any(bool((r == (1 << n) - 1).any()) for r in rend)
+        else:  # view 2 flags no render slot, has GT terms and no gradient
+            assert not bool(rend[2].any()) and int(ref[1][2]) > 0
+            assert float(ref[2][2].abs().max()) == 0.0
+        S, C, dg = ref
+        Sp, Cp, dgp = cuda_raster.raster_loss_grad_plain(pack, p1s, p2s, img,
+                                                         False)
+        assert torch.equal(C, Cp)
+        torch.testing.assert_close(S, Sp, rtol=1e-5, atol=0)
+        scale = dgp.abs().amax(dim=1, keepdim=True)
+        assert bool(((dg - dgp).abs() <= 1e-5 * scale).all())
 
 
 @pytest.mark.cuda

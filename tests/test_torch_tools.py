@@ -448,3 +448,34 @@ def test_roofline_main_counts_on_cpu_and_probe_needs_gpu(capsys):
     assert (out["activity"]["active_tiles"] > 0).all()
     with pytest.raises(RuntimeError, match="GPU"):
         roofline.main(["--probe", "--device", "cpu"])
+
+
+def test_slot_counts_match_a_hand_count():
+    """The histograms of flagged and render slots over a call's live list
+    entries, on a hand-built pack of 2 views × 3 slots over 2 × 2 tiles."""
+    from skelsplat_tpu_torch.tools import k1_variants as kv
+
+    pack = torch.zeros(2, 3, cr.PACK)
+
+    def slot(v, i, opa=0.0, rect=(0, 0, 0, 0), gt=(0, 0, 0, 0)):
+        pack[v, i, cr.IDX_OPA] = opa
+        pack[v, i, cr.IDX_RX0:cr.IDX_RY1 + 1] = torch.tensor(rect)
+        pack[v, i, cr.IDX_GY0:cr.IDX_GX1 + 1] = torch.tensor(gt)
+
+    # view 0: slot 0 renders on all 4 tiles, slot 1 on tile 1 with its GT
+    # on tile 0, slot 2 has its GT on tile 3 alone; view 1: slot 0's GT on
+    # tile 1 alone
+    slot(0, 0, 1.0, rect=(0, 0, 2, 2))
+    slot(0, 1, 1.0, rect=(1, 0, 2, 1), gt=(0, 16, 0, 16))
+    slot(0, 2, gt=(16, 32, 16, 32))
+    slot(1, 0, gt=(0, 8, 20, 24))
+    out = kv.slot_counts(pack, 32, 32)
+    _, _, live_n = cr.live_tiles_plain(pack, 32, 32)
+    assert live_n.tolist() == [4, 1]
+    # flagged, by tile: v0 {0, 1}, {0, 1}, {0}, {0, 2}; v1 {0}
+    assert out["flagged"] == [0, 2, 3, 0]
+    # render, by tile: v0 {0}, {0, 1}, {0}, {0}; v1 none
+    assert out["render"] == [1, 3, 1, 0]
+    assert out["entries"] == sum(out["flagged"]) == sum(out["render"]) \
+        == int(live_n.sum())
+    assert out["no_render_share"] == pytest.approx(1 / 5)
