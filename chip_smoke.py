@@ -37,12 +37,13 @@ Phases, each failing the script (nonzero exit) on any error:
              beside its plain version and its bound by bytes. Last, K1
              at each benchmark cell's call (k1_variants.CELLS: 4 views
              of 1002×1000 with 17 joints, 4 of 1920×1080 with 19, 128
-             Panoptic frames' 512 views): bitwise its run of one, the
-             views on both sides of each of the tile kernel's 256-view
-             windows (all views of a chain's call) held to its plain
-             version as above, the batch's 512 views bitwise each
-             scene's own 4-view call, each kernel's device time, its
-             bound and its run length.
+             Panoptic frames' 512 views, 4 of 1280×720 with 15 and the
+             extremities at 1.25× scale, 512 H36M frames' 2,048 views):
+             bitwise its run of one, the views on both sides of each of
+             the tile kernel's 256-view windows (all views of a chain's
+             call) held to its plain version as above, a batch's views
+             bitwise each scene's own 4-view call, each kernel's device
+             time, its bound and its run length.
 3. path    — one synthetic H36M frame (4 views at 1002×1000, 17 joints,
              500 iterations = 125 macro steps, l2_gaussian + limb
              consistency) through SceneTrainer.optimize_scene(renderer=
@@ -566,8 +567,9 @@ def k1_at_cells() -> dict:
     from skelsplat_tpu_torch.tools.timing import cuda_ms
 
     out = {}
-    for cell, w, h, n, scenes in k1_variants.CELLS:
-        x = k1_variants.cell_inputs(w, h, n, scenes)
+    for c in k1_variants.CELLS:
+        cell, w, h, n, scenes = c[:5]
+        x = k1_variants.cell_inputs(c)
         V = x[0].shape[0]
         R = k1_run_length(V, w, h, n)
         got = cr.raster_loss_grad(*x, False)

@@ -377,6 +377,7 @@ def _launch(pack, p1, p2, img, l1: bool, with_grad: bool,
         S.data_ptr(), C.data_ptr(), dg.data_ptr())
     if with_grad:
         tracing.count("k1_run_length", str(run))
+        tracing.count("k1_slot_bound", str(_build.slot_bound(N)))
     return S, C, (dg if with_grad else None), (live_idx, live_mask, live_n)
 
 

@@ -53,16 +53,32 @@ import re
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
 from skelsplat_tpu_torch import resolve_device
 from skelsplat_tpu_torch.ops import _build, cuda_raster as cr
 
-# the benchmark cells' K1 calls: (cell, W, H, joints, scenes)
-CELLS = (("h36m.chain32", 1002, 1000, 17, 1),
-         ("panoptic.chain32", 1920, 1080, 19, 1),
-         ("panoptic.batch128", 1920, 1080, 19, 128))
+class Cell(NamedTuple):
+    """A benchmark cell's K1 call: its frame size, joints and scenes, and
+    the model's dataset and extremity scale modifier."""
+
+    name: str
+    width: int
+    height: int
+    joints: int
+    scenes: int
+    dataset: str = "h36m"
+    modifier: float = 1.0
+
+
+# the benchmark cells' K1 calls
+CELLS = (Cell("h36m.chain32", 1002, 1000, 17, 1),
+         Cell("panoptic.chain32", 1920, 1080, 19, 1, "panoptic"),
+         Cell("panoptic.batch128", 1920, 1080, 19, 128, "panoptic"),
+         Cell("op.chain32", 1280, 720, 15, 1, "occlusion-person", 1.25),
+         Cell("h36m.batch512", 1002, 1000, 17, 512))
 OUT_DIR = _build.BUILD_DIR.parent / "k1_variants"
 
 # the single-entry tile kernel's parts that the split takes away
@@ -187,15 +203,17 @@ def poison(bufs):
     bufs["C"].fill_(-1)
 
 
-def cell_inputs(width: int, height: int, n_joints: int, scenes: int,
-                seed: int = 0, device="cuda"):
+def cell_inputs(cell: Cell, seed: int = 0, device="cuda"):
     """K1's inputs at a cell's call: frame 0 of seeds ``seed`` ..
-    ``seed + scenes - 1`` at its initial parameters, each scene's 4 views
-    one scene after another."""
+    ``seed + cell.scenes - 1`` at its initial parameters, each scene's 4
+    views one scene after another."""
     from skelsplat_tpu_torch.tools.kernel_probe import probe_inputs
 
-    parts = [probe_inputs(width, height, n_joints=n_joints, seed=seed + s,
-                          device=device) for s in range(scenes)]
+    parts = [probe_inputs(cell.width, cell.height, n_joints=cell.joints,
+                          seed=seed + s, device=device,
+                          scene_type=cell.dataset,
+                          scaling_modifier=cell.modifier)
+             for s in range(cell.scenes)]
     return tuple(torch.cat(xs).contiguous() for xs in zip(*parts))
 
 
@@ -232,12 +250,12 @@ def _summary(hist) -> str:
 def cell_slots(cell, seed: int) -> dict:
     """``slot_counts`` of a cell's call, summed scene by scene, from inputs
     made on the CPU."""
-    name, w, h, n, scenes = cell
+    name, w, h, n, scenes = cell[:5]
     out = {"cell": name, "views": 4 * scenes, "entries": 0,
            "flagged": [0] * (n + 1), "render": [0] * (n + 1)}
     for s in range(scenes):
-        c = slot_counts(cell_inputs(w, h, n, 1, seed + s, device="cpu")[0],
-                        h, w)
+        c = slot_counts(cell_inputs(cell._replace(scenes=1), seed + s,
+                                    "cpu")[0], h, w)
         out["entries"] += c["entries"]
         for key in ("flagged", "render"):
             out[key] = [a + b for a, b in zip(out[key], c[key])]
@@ -274,8 +292,8 @@ def measure_cell(cell, libs: dict, runs, seed: int) -> list:
     orders, and bitwise against the tree's own call."""
     from skelsplat_tpu_torch.tools.timing import cuda_ms
 
-    name, w, h, n, scenes = cell
-    x = cell_inputs(w, h, n, scenes, seed)
+    name, w, h, n, scenes = cell[:5]
+    x = cell_inputs(cell, seed)
     V = x[0].shape[0]
     own = cr.run_length(V, _build.n_tiles(w, h), cr.persistent_grid(
         torch.cuda.current_device(), True, False, n))
@@ -325,8 +343,8 @@ def measure_cell(cell, libs: dict, runs, seed: int) -> list:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--cells", nargs="+", default=[c[0] for c in CELLS],
-                    choices=[c[0] for c in CELLS])
+    ap.add_argument("--cells", nargs="+", default=[c.name for c in CELLS],
+                    choices=[c.name for c in CELLS])
     ap.add_argument("--runs", type=int, nargs="+", default=[1],
                     help="run lengths to time each build that takes one at, "
                          "beside the tree's own at each cell")
@@ -342,7 +360,7 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if args.slots:
         out = {"slots": [cell_slots(cell, args.seed) for cell in CELLS
-                         if cell[0] in args.cells]}
+                         if cell.name in args.cells]}
         print(json.dumps(out), flush=True)
         return out
     resolve_device("cuda")
@@ -360,7 +378,7 @@ def main(argv=None) -> dict:
     out = {"card": card_line(), "rows": [], "occupancy": {}}
     print(f"card: {out['card']}; builds {list(libs)}", flush=True)
     for b, (so, _) in libs.items():
-        for n in sorted({cell[3] for cell in CELLS}):
+        for n in sorted({cell.joints for cell in CELLS}):
             occ = occupancy(so, n)
             out["occupancy"][f"{b}.n{n}"] = occ
             print(f"{b}, {n} slots: slot bound {occ['slot_bound']}, "
@@ -368,7 +386,7 @@ def main(argv=None) -> dict:
                   f"bytes a thread, {occ['blocks_per_sm']} resident blocks "
                   f"per SM", flush=True)
     for cell in CELLS:
-        if cell[0] in args.cells:
+        if cell.name in args.cells:
             out["rows"] += measure_cell(cell, libs, args.runs, args.seed)
             torch.cuda.empty_cache()
     if args.out:

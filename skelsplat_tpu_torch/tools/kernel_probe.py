@@ -51,9 +51,11 @@ def probe_inputs(width: int = W, height: int = H, n_joints: int = N_JOINTS,
                  n_views: int = N_VIEWS, seed: int = 0, device="cuda",
                  widths=None, behind_camera: bool = False,
                  perturb: bool = False, ring: float = 4200.0,
-                 one_point: bool = False):
+                 one_point: bool = False, scene_type: str = "h36m",
+                 scaling_modifier: float = 1.0):
     """(pack (V,N,16), p1 (V,N,H), p2 (V,N,W), img (V,2)) of frame 0 of the
-    synthetic scenes from ``seed`` at its initial parameters, depth-sorted
+    synthetic scenes from ``seed`` at its initial parameters (``scene_type``'s
+    extremity joints at ``scaling_modifier`` times the log-scale), depth-sorted
     and packed as ``fused_view_loss_cuda`` packs them for K1. ``widths``
     gives each view its true image width (``width`` is the grid's);
     ``behind_camera`` moves joint 4 behind camera 0, which culls it there;
@@ -79,7 +81,8 @@ def probe_inputs(width: int = W, height: int = H, n_joints: int = N_JOINTS,
         away = c - pose.mean(axis=0)
         pose[4] = c + 300.0 * away / np.linalg.norm(away)
     cams = compat.camera_from_numpy(cams_np, device=dev)
-    params = init_params(pose, "h36m", 3.0, 1.0, device=dev)
+    params = init_params(pose, scene_type, 3.0, scaling_modifier,
+                         device=dev)
     spec = heatmaps.heatmap_spec(params.xyz, params.covariance(),
                                  torch.as_tensor(p2d[0], device=dev), cams,
                                  width, height)

@@ -30,10 +30,12 @@ ran for minutes (CUDA's float32 milliseconds).
 program (prepare, step, collect), ``host_syncs`` by call site (every
 synchronize, and every host copy of a device tensor, that the program
 makes itself), ``captures`` by program, ``input_bytes`` (the packed
-host inputs), and two of device work (``DEVICE``): ``kernel_launches``
-by kernel label (``ops/_build.py::launch``) and ``k1_run_length``, K1's
-calls by run length. A unit keeps the counts made while it was open, so
-``window`` counts what the units of an interval did. A capture launches
+host inputs), and three of device work (``DEVICE``): ``kernel_launches``
+by kernel label (``ops/_build.py::launch``), ``k1_run_length``, K1's
+calls by run length, and ``k1_slot_bound``, K1's calls by the slot bound
+of the tile-kernel build they launch ("16", "24" or "32"). A unit keeps
+the counts made while it was open, so ``window`` counts what the units
+of an interval did. A capture launches
 nothing, so ``capturing`` holds back its device-work counts, and each
 replay of the graph credits them (``Credit``, ``credit``).
 
@@ -62,8 +64,8 @@ UNITS = ("skelsplat.scene", "skelsplat.chain", "skelsplat.batch")
 LAUNCH = "skelsplat.launch"
 REPLAY = "skelsplat.replay."
 COUNTERS = ("graph_launches", "host_syncs", "captures", "input_bytes",
-            "kernel_launches", "k1_run_length")
-DEVICE = frozenset(("kernel_launches", "k1_run_length"))
+            "kernel_launches", "k1_run_length", "k1_slot_bound")
+DEVICE = frozenset(("kernel_launches", "k1_run_length", "k1_slot_bound"))
 CURRENT = -1    # a device interval on the current CUDA device
 
 _now = time.perf_counter_ns

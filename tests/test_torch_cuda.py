@@ -907,7 +907,8 @@ def test_replays_make_no_host_sync_and_count_k1(card):
         ("kernel_launches", "raster_loss_grad"): 1,
         ("kernel_launches", "preprocess_pack"): 1,
         ("kernel_launches", "preprocess_grad"): 1,
-        ("kernel_launches", "compose_adam"): 1, ("k1_run_length", str(R)): 1}
+        ("kernel_launches", "compose_adam"): 1, ("k1_run_length", str(R)): 1,
+        ("k1_slot_bound", "24"): 1}
     graph.state.step.zero_()     # 20 more steps from the first
     torch.cuda.synchronize()
     before = _build.launch_counts()
@@ -916,6 +917,72 @@ def test_replays_make_no_host_sync_and_count_k1(card):
     assert _build.launch_counts(since=before) == {
         "raster_loss_grad": 20, "raster_loss": 0, "preprocess_pack": 20,
         "preprocess_grad": 20, "compose_adam": 20, "issue_rate": 0}
+
+
+# (model, joints, the slot bound of K1's tile-kernel build)
+SLOT_BOUNDS = {"n15": ("occlusion-person", 15, "16"),
+               "n19": ("panoptic", 19, "24"), "n25": ("h36m", 25, "32")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SLOT_BOUNDS))
+def test_k1_slot_bound_counts_one_call_a_macro_step(card, case):
+    """K1's calls by the slot bound of the tile-kernel build they launch:
+    15, 19 and 25 joints take the 16-, 24- and 32-slot builds, one call a
+    macro step, in an eager scene, in a captured one (its first 3 steps
+    eager, the rest replays) and on each further replay of its step."""
+    from collections import Counter
+
+    from skelsplat_tpu_torch import tracing
+    from skelsplat_tpu_torch.core.gaussians import SkeletonModel
+    from skelsplat_tpu_torch.engine.optim import OptConfig
+    from skelsplat_tpu_torch.engine.trainer import SceneTrainer, TrainSettings
+
+    scene, n, bound = SLOT_BOUNDS[case]
+    assert _build.slot_bound(n) == int(bound)
+    init, gt, p2d, cams_np = synthetic_inputs(1, W, H, n_joints=n)
+    cams = compat.camera_from_numpy(cams_np, device="cpu")
+
+    def counted(fn):
+        before = Counter(tracing.counters["k1_slot_bound"])
+        fn()
+        torch.cuda.synchronize()
+        return dict(tracing.counters["k1_slot_bound"] - before)
+
+    for eager in (True, False):
+        tr = SceneTrainer(SkeletonModel(scene, n), OptConfig(40),
+                          TrainSettings(), W, H, renderer="cuda", eager=eager)
+        assert counted(lambda: tr.optimize_scene(init[0], p2d[0], cams,
+                                                 gt[0])) == {bound: 10}
+    graph = next(iter(tr.graphs.values()))
+    assert graph.step_program.credit.counts[("k1_slot_bound", bound)] == 1
+    graph.state.step.zero_()
+    assert counted(lambda: [graph.step() for _ in range(5)]) == {bound: 5}
+
+
+@pytest.mark.cuda
+def test_frozen_rotations_stay_bitwise_on_the_card(card):
+    """Occlusion-Person's published optimizer (rotation LR 0, position and
+    scaling LR 5e-3) on a captured scene: kernel C leaves every quaternion
+    bitwise at its initial value over the eager steps and the replays,
+    while the scales move."""
+    from skelsplat_tpu_torch.core.gaussians import SkeletonModel
+    from skelsplat_tpu_torch.engine.optim import OptConfig
+    from skelsplat_tpu_torch.engine.trainer import SceneTrainer, TrainSettings
+
+    init, gt, p2d, cams_np = synthetic_inputs(1, W, H, n_joints=15)
+    cams = compat.camera_from_numpy(cams_np, device="cpu")
+    model = SkeletonModel("occlusion-person", 15, scaling_modifier=1.25)
+    tr = SceneTrainer(model, OptConfig(40, position_lr_init=5e-3,
+                                       rotation_lr=0.0),
+                      TrainSettings(), W, H, renderer="cuda")
+    before = _build.launch_counts()
+    params, _ = tr.optimize_scene(init[0], p2d[0], cams, gt[0])
+    torch.cuda.synchronize()
+    assert _build.launch_counts(since=before)["compose_adam"] == 10
+    start = model.init(init[0], device="cuda")
+    assert torch.equal(params.quats, start.quats)
+    assert not torch.equal(params.log_scales, start.log_scales)
 
 
 @pytest.mark.cuda
@@ -962,6 +1029,7 @@ def test_warm_chain_counts_its_graph_launches_and_device_intervals(card):
         assert win["by_label"]["graph_launches"] == {
             "prepare": 2, "step": 250, "collect": 2}
         assert win["by_label"]["k1_run_length"] == {str(R): 250}
+        assert win["by_label"]["k1_slot_bound"] == {"24": 250}
         assert win["counters"]["host_syncs"] == win["counters"]["captures"] \
             == 0
         assert win["scenes"] == 2

@@ -479,3 +479,22 @@ def test_slot_counts_match_a_hand_count():
     assert out["entries"] == sum(out["flagged"]) == sum(out["render"]) \
         == int(live_n.sum())
     assert out["no_render_share"] == pytest.approx(1 / 5)
+
+
+def test_k1_variants_cells_carry_their_models_scale():
+    """Occlusion-Person's K1 call is made with its model: the extremity
+    joints at 1.25 × the log-scale widen their splats and GT blurs, so its
+    live list has more entries than the same frame at modifier 1.0, and
+    the slots an entry flags are counted over the 15 slots."""
+    from skelsplat_tpu_torch.tools import k1_variants as kv
+
+    cell = next(c for c in kv.CELLS if c.name == "op.chain32")
+    assert (cell.dataset, cell.modifier, cell.joints) == (
+        "occlusion-person", 1.25, 15)
+    counts = {}
+    for c in (cell, cell._replace(modifier=1.0)):
+        pack, p1s, p2s, img = kv.cell_inputs(c, device="cpu")
+        assert pack.shape == (4, 15, cr.PACK)
+        counts[c.modifier] = kv.slot_counts(pack, c.height, c.width)
+    assert counts[1.25]["entries"] > counts[1.0]["entries"]
+    assert len(counts[1.25]["flagged"]) == 16
